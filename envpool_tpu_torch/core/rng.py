@@ -1,0 +1,74 @@
+"""Per-env counter-based random streams on device.
+
+The JAX engine keeps one threefry key per env and splits it every step
+(``envpool_tpu/core/engine.py:165-180``).  Torch's Philox cannot reproduce
+those bits, so the port keeps its own per-env streams: a key is an
+``[N, 2]`` int64 tensor of two 32-bit words, ``(stream, counter)``, seeded
+from ``seed + env_id`` (or ``env_seed``).  :func:`split` hands out a
+subkey and advances the counter; :func:`randint` and :func:`uniform` hash
+``(subkey, slot)`` into one draw per env.  An env's draws therefore depend
+only on its own seed and step count, never on ``num_envs``.
+
+All arithmetic stays below 2**63 in int64, so the hash gives the same
+bits on the CPU and on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["seed_keys", "split", "randint", "uniform", "random_bits"]
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for 32-bit ``x`` without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finaliser (the "lowbias32" hash)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def seed_keys(seeds: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``[N, 2]`` keys ``(seed mod 2**32, 0)`` from per-env integer seeds."""
+    stream = torch.as_tensor(
+        np.asarray(seeds, np.int64) & _M32, dtype=torch.int64, device=device
+    )
+    return torch.stack([stream, torch.zeros_like(stream)], dim=1)
+
+
+def split(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(next_key, subkey)``: the subkey feeds this step's draws."""
+    stream, counter = key[:, 0], key[:, 1]
+    sub = torch.stack(
+        [_mix32(stream ^ _mix32(counter)), _mix32(counter ^ _GOLDEN)], dim=1
+    )
+    nxt = torch.stack([stream, (counter + 1) & _M32], dim=1)
+    return nxt, sub
+
+
+def random_bits(sub: torch.Tensor, slot: int) -> torch.Tensor:
+    """``[N]`` uniform 32-bit words (int64) for draw number ``slot``."""
+    salt = _mix32(sub[:, 1] ^ ((slot * _GOLDEN) & _M32))
+    return _mix32(sub[:, 0] ^ salt)
+
+
+def randint(sub: torch.Tensor, slot: int, n: int) -> torch.Tensor:
+    """``[N]`` int32 draws uniform in ``[0, n)``."""
+    return ((random_bits(sub, slot) * n) >> 32).to(torch.int32)
+
+
+def uniform(sub: torch.Tensor, slot: int) -> torch.Tensor:
+    """``[N]`` float32 draws uniform in ``[0, 1)``."""
+    return (random_bits(sub, slot) >> 8).to(torch.float32) * (2.0**-24)

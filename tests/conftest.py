@@ -39,3 +39,9 @@ if os.environ.get("ENVPOOL_TPU_COMPILE_CACHE", "") == "1":
     _cache.mkdir(exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", str(_cache))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped where there is none"
+    )

@@ -1,0 +1,154 @@
+"""The public surface of envpool_tpu_torch against envpool_tpu.
+
+Specs, spaces, dtypes, adapter outputs and error paths of PongLite-v5 must
+match the JAX package's; the port must import neither JAX nor envpool_tpu,
+and must refuse to fall back to the CPU when a CUDA device is missing.
+"""
+
+import subprocess
+import sys
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import envpool_tpu
+import envpool_tpu_torch
+
+TASK = "PongLite-v5"
+
+
+def _specs(**kwargs):
+    return (
+        envpool_tpu.make_spec(TASK, **kwargs),
+        envpool_tpu_torch.make_spec(TASK, device="cpu", **kwargs),
+    )
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"num_envs": 2}, {"num_envs": 3, "gray_scale": False, "stack_num": 2,
+                       "img_height": 42, "full_action_space": True}],
+)
+def test_spec_surface_matches_jax(kwargs):
+    jspec, tspec = _specs(**kwargs)
+    assert list(jspec.state_array_spec) == list(tspec.state_array_spec)
+    for k, js in jspec.state_array_spec.items():
+        ts = tspec.state_array_spec[k]
+        assert (js.dtype, js.shape, js.is_discrete) == (ts.dtype, ts.shape, ts.is_discrete), k
+        np.testing.assert_array_equal(js.minimum, ts.minimum)
+        np.testing.assert_array_equal(js.maximum, ts.maximum)
+        assert ts.torch_dtype == torch.from_numpy(np.zeros(0, ts.dtype)).dtype
+    assert repr(jspec.action_array_spec) == repr(tspec.action_array_spec)
+    jcfg, tcfg = jspec.config._asdict(), tspec.config._asdict()
+    assert tcfg.pop("device") == "cpu"
+    assert jcfg == tcfg
+    assert jspec.observation_space == tspec.observation_space
+    assert jspec.action_space == tspec.action_space
+    assert repr(jspec.observation_spec()) == repr(tspec.observation_spec())
+    assert repr(jspec.action_spec()) == repr(tspec.action_spec())
+    assert jspec.reward_threshold == tspec.reward_threshold
+
+
+def test_registry_surface():
+    assert envpool_tpu_torch.list_all_envs() == [TASK]
+    with pytest.raises(ValueError):
+        envpool_tpu_torch.make(TASK, env_type="gym3", device="cpu")
+    assert set(envpool_tpu.__all__) - {"TpuEnv"} == set(envpool_tpu_torch.__all__) - {
+        "TorchEnv"
+    }
+
+
+@pytest.mark.parametrize(
+    "kwargs,error",
+    [
+        ({"task_id": "NoSuchGame-v5"}, ValueError),
+        ({"no_such_key": 1}, TypeError),
+        ({"num_envs": 2, "batch_size": 3}, ValueError),
+        ({"seed": 2**31}, ValueError),
+        ({"num_envs": 2, "env_seed": [1]}, ValueError),
+        ({"sharding": "dp"}, NotImplementedError),
+        ({"record_dir": "episodes"}, NotImplementedError),
+    ],
+)
+def test_error_paths_match_jax(kwargs, error):
+    kwargs = dict(kwargs)
+    task = kwargs.pop("task_id", TASK)
+    with pytest.raises(error):
+        envpool_tpu_torch.make(task, env_type="gymnasium", device="cpu", **kwargs)
+    if error is not NotImplementedError:
+        with pytest.raises(error):
+            envpool_tpu.make(task, env_type="gymnasium", **kwargs)
+
+
+def test_cuda_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        envpool_tpu_torch.make(TASK, env_type="gymnasium", num_envs=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        envpool_tpu_torch.make_dm(TASK, num_envs=2, device="cuda")
+
+
+def test_import_loads_neither_jax_nor_envpool_tpu():
+    code = (
+        "import sys, envpool_tpu_torch, envpool_tpu_torch.interop;"
+        "import envpool_tpu_torch.envs.atari.obs_ties;"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'envpool_tpu' or m.startswith('envpool_tpu.')];"
+        "assert not bad, bad"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_gymnasium_outputs_match_jax_structure():
+    jpool = envpool_tpu.make(TASK, env_type="gymnasium", num_envs=2, seed=0)
+    tpool = envpool_tpu_torch.make(TASK, env_type="gymnasium", num_envs=2, seed=0, device="cpu")
+    for out_j, out_t in ((jpool.reset(), tpool.reset()),
+                         (jpool.step(np.ones(2, np.int32)), tpool.step(np.ones(2, np.int32)))):
+        assert len(out_j) == len(out_t)
+        for a, b in zip(out_j, out_t):
+            if isinstance(a, dict):
+                assert set(a) == set(b)
+                a, b = a["players"]["env_id"], b["players"]["env_id"]
+            assert isinstance(b, np.ndarray)
+            assert (a.dtype, a.shape) == (b.dtype, b.shape)
+    assert tpool.observation_space == jpool.observation_space
+    assert tpool.action_space == jpool.action_space
+
+
+def test_dm_outputs_match_jax_structure():
+    jpool = envpool_tpu.make_dm(TASK, num_envs=2, seed=0)
+    tpool = envpool_tpu_torch.make_dm(TASK, num_envs=2, seed=0, device="cpu")
+    for tj, tt in ((jpool.reset(), tpool.reset()),
+                   (jpool.step(np.zeros(2, np.int32)), tpool.step(np.zeros(2, np.int32)))):
+        assert type(tj) is type(tt)
+        assert tj.observation._fields == tt.observation._fields
+        np.testing.assert_array_equal(tj.step_type, tt.step_type)
+        assert tt.observation.obs.shape == (2, 4, 84, 84)
+    assert repr(jpool.observation_spec()) == repr(tpool.observation_spec())
+
+
+def test_adapter_options_and_unported_methods():
+    pool = envpool_tpu_torch.make(
+        TASK, env_type="gymnasium", num_envs=3, device="cpu", numpy_output=False
+    )
+    obs, info = pool.reset()
+    assert isinstance(obs, torch.Tensor) and obs.dtype == torch.uint8
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pool.reset(seed=3)
+    assert any("ignored" in str(w.message) for w in caught)
+    obs, info = pool.reset(options={"reset_mask": np.array([False, True, True])})
+    assert info["env_id"].tolist() == [1, 2]
+    with pytest.raises(ValueError):
+        pool.reset(options={"reset_mask": np.zeros(3, bool)})
+    with pytest.raises(ValueError):
+        pool.step(np.zeros(2, np.int32))
+    obs, rew, term, trunc, info = pool.step({"action": torch.zeros(3, dtype=torch.int32)})
+    assert rew.dtype == torch.float32 and term.dtype == torch.bool
+    for call in (pool.render, lambda: pool.save_state("x.npz"), lambda: pool.load_state("x.npz")):
+        with pytest.raises(NotImplementedError):
+            call()
+    assert isinstance(pool, envpool_tpu_torch.GymnasiumEnvPool)
+    assert isinstance(pool, envpool_tpu_torch.EnvPool)
