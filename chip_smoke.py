@@ -2,12 +2,16 @@
 """Smoke test of envpool_tpu_torch on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It builds the port's CUDA kernel (K1: fused max-pool + INTER_AREA resize,
-``envpool_tpu_torch/csrc/pool_resize.cu``), holds it against its plain
-PyTorch version on the card, drives PongLite-v5 at 2048 envs through the
+It builds the port's two CUDA kernels at once (K1: fused max-pool +
+INTER_AREA resize, ``envpool_tpu_torch/csrc/pool_resize.cu``; K2: one video
+frame of every 2600 machine, ``envpool_tpu_torch/csrc/machine_frame.cu``)
+and holds each against its plain PyTorch version on the card.  Then, for
+PongLite-v5 at 2048 envs and for Machine2600-v0 (the 6502+TIA emulator on
+the repository's hand-built pong cart) at 1024 envs, it drives the
 gymnasium, dm and functional entry points, checks the card against the
-CPU port, profiles one engine step, and times a rollout.  It exits non-zero on any failure, and
-when no CUDA device is present.
+CPU port, profiles engine steps and times a rollout.  It also times K2
+alone (frames/s and emulated 6502 cycles/s).  It exits non-zero on any
+failure, and when no CUDA device is present.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the ``kernels`` JSON record.
@@ -15,15 +19,19 @@ before it is the ``kernels`` JSON record.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import pathlib
 import subprocess
 import sys
 import time
 
 import numpy as np
 
+REPO = pathlib.Path(__file__).resolve().parent
 SEED = 20260
 N_ENVS = 2048
+N_MACHINES = 1024  # the width bench.py:147 used for the emulator
 RAW_HW = (210, 160)
 OUT_HW = (84, 84)
 # H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores
@@ -283,6 +291,15 @@ def phase_throughput(device: str, n: int, steps: int) -> tuple[float, float]:
     return steps * n / dt, per_step
 
 
+def _device_events(events) -> list:
+    """The profiler's device-side events (kernels, copies).  The host-side
+    op events carry the same device time again, so only these are summed."""
+    import torch
+
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def phase_profile(device: str, n: int, steps: int) -> None:
     """``torch.profiler`` over ``steps`` engine steps: device time, idle
     share, launches per step and the kernels that take the most time."""
@@ -315,7 +332,7 @@ def phase_profile(device: str, n: int, steps: int) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    kernels = [e for e in events if e.self_device_time_total > 0]
+    kernels = _device_events(events)
     device_us = sum(e.self_device_time_total for e in kernels)
     _check(device_us > 0, "the profiler saw no device time")
     launches = sum(e.count for e in events if e.key in (
@@ -331,6 +348,336 @@ def phase_profile(device: str, n: int, steps: int) -> None:
               f"{e.count / steps:6.0f}  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Machine2600 (the 6502+TIA emulator) and K2
+# ---------------------------------------------------------------------------
+
+
+def _carts():
+    """The repository's hand-built carts (tests/machine_carts.py)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import machine_carts
+
+    return machine_carts
+
+
+def _machines(rom, n: int, device, seed: int, differ: bool = True) -> dict:
+    import torch
+
+    from envpool_tpu_torch.envs.atari import cpu6502, tia
+
+    swcha, inpt4 = _carts().lane_inputs(n, seed)
+    if not differ:
+        swcha, inpt4 = swcha[:1].repeat(n), inpt4[:1].repeat(n)
+    g = tia.attach_tia(cpu6502.make_machine(rom, n, device))
+    g.update(swcha=torch.as_tensor(swcha, device=device),
+             inpt4=torch.as_tensor(inpt4, device=device))
+    return g
+
+
+def phase_k2_vs_plain(device: str) -> int:
+    """K2 against its plain version on every cart, and the collision bits
+    on random register files; returns the number of mismatched leaves."""
+    import torch
+
+    from envpool_tpu_torch.envs.atari import machine_kernel
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+
+    carts = _carts()
+    cases = [  # (name, rom, lanes, frames, lanes get different inputs)
+        ("pong", carts.pong_rom(), 32, 3, True),
+        ("f8", carts.f8_rom(), 8, 2, True),
+        ("f6", carts.f6_rom(), 8, 2, True),
+        ("random0", carts.random_rom(0), 8, 1, False),
+    ]
+    bad_total = 0
+    for name, rom, n, frames, differ in cases:
+        tables = machine_kernel.build_tables(rom, device)
+        got = plain = _machines(rom, n, device, SEED, differ)
+        for f in range(frames):
+            got = machine_frame(got, tables)
+            plain = machine_kernel.frame(plain, tables)
+            torch.cuda.synchronize()
+            bad = [k for k in plain if not torch.equal(got[k], plain[k])]
+            bad_total += len(bad)
+            _check(not bad, f"K2 differs from plain on {name} frame {f}: {bad}")
+        print(f"K2 vs plain [{name}, {n} lanes x {frames} frames]: 0 mismatched "
+              f"leaves of {len(plain)}; cycles {int(got['cycles'][0])}, "
+              f"bank {int(got['bank'][0])}, scanline {int(got['scanline'][0])}")
+    rng = np.random.default_rng(7)
+    rec = rng.integers(0, 256, (512, 24)).astype(np.int32)
+    rec[:, 10:12] = rng.integers(0, 160, (512, 2))
+    rec[:, 17:20] = rng.integers(0, 160, (512, 3))
+    rec_t = torch.as_tensor(rec)
+    got = machine_frame.collisions(rec_t.to(device)).cpu()
+    want = machine_kernel.collisions(rec_t).to(torch.int32)
+    bad = int((got != want).sum())
+    bad_total += bad
+    _check(bad == 0, "K2's collision bits differ from the plain version")
+    print(f"K2 collision bits vs plain on 512 random records: {bad} mismatches")
+    return bad_total
+
+
+def phase_k2_timing(device: str, n: int) -> dict:
+    """K2 frames/s and emulated 6502 cycles/s on the pong cart at ``n``
+    machines in steady full frames (after 6 warm-up frames, as bench.py
+    does), and the plain version's time for one frame."""
+    import torch
+
+    from envpool_tpu_torch.envs.atari import machine_kernel
+    from envpool_tpu_torch.ops.cuda_machine import NS, machine_frame
+
+    rom = _carts().pong_rom()
+    tables = machine_kernel.build_tables(rom, device)
+    g = _machines(rom, n, device, SEED)
+    for _ in range(6):
+        g = machine_frame(g, tables)
+    frames = 20
+    state = {"g": g}
+
+    def run():
+        state["g"] = machine_frame(state["g"], tables)
+
+    c0 = state["g"]["cycles"].to(torch.int64)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(frames):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    k2_ms = start.elapsed_time(end) / frames
+    dcyc = int(((state["g"]["cycles"].to(torch.int64) - c0) % 2**32).sum())
+    cyc_per_s = dcyc / (k2_ms * frames / 1e3)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    machine_kernel.frame(state["g"], tables)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    # Bytes the frame must move: every state leaf in and out, the line
+    # records it writes, and the cart and decode table once.
+    per_machine = (NS + 128 + 64 + 8) * 4 * 2 + 192 * 24 * 4
+    nbytes = n * per_machine + rom.size + 256 * 4 * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(
+        f"K2 at {n} machines, pong cart, {frames} steady frames: {k2_ms:.4f} ms/frame "
+        f"= {n / k2_ms * 1e3:,.0f} machine-frames/s; {dcyc} emulated 6502 cycles "
+        f"= {cyc_per_s:,.0f} cycles/s; plain version {plain_ms:.1f} ms for one frame"
+    )
+    print(
+        f"K2 bound: {nbytes / 1e6:.2f} MB / 3.35 TB/s = {bound_ms:.5f} ms "
+        "(no published integer peak for the operations side; the serial "
+        "chain of emulated instructions bounds it)"
+    )
+    return {
+        "max_abs_err": 0,
+        "ms": k2_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def _write_cart(rom) -> str:
+    path = REPO / "envpool_tpu_torch" / "_build" / "carts" / "pong_like.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(rom.tobytes())
+    return str(path)
+
+
+MACHINE = {"ram_reward_addr": 0x81, "ram_lives_addr": 0x87}
+
+
+def phase_machine_adapters(device: str, n: int, rom_path: str) -> int:
+    """Machine2600-v0 at registered defaults through gymnasium, dm and the
+    functional handle; returns K2 launches per engine step."""
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+
+    env = envpool_tpu_torch.make(
+        "Machine2600-v0", env_type="gymnasium", num_envs=n, seed=SEED,
+        device=device, numpy_output=False, rom_path=rom_path, **MACHINE,
+    )
+    obs, info = env.reset()
+    rng = np.random.default_rng(SEED)
+    rewards, terms, resets = 0, 0, 0
+    steps = 40
+    before = machine_frame.launches
+    for t in range(steps):
+        act = torch.as_tensor(rng.integers(0, 18, n, dtype=np.int32))
+        obs, rew, term, trunc, info = env.step(act)
+        rewards += int((rew > 0).sum())
+        terms += int(term.sum())
+        resets += int((info["elapsed_step"] == 0).sum())
+    per_step = (machine_frame.launches - before) / steps
+    _check(tuple(obs.shape) == (n, 4, *OUT_HW), f"obs shape {tuple(obs.shape)}")
+    _check(obs.dtype == torch.uint8, f"obs dtype {obs.dtype}")
+    _check(obs.device.type == torch.device(device).type, f"obs on {obs.device}")
+    _check(int(obs.float().std()) > 0 or bool((obs > 0).any()), "blank obs")
+    _check(rewards > 0, "no reward in the gymnasium run")
+    _check(terms > 0 and resets > 0, "no termination with auto-reset")
+    print(
+        f"Machine2600-v0 gymnasium: obs {tuple(obs.shape)} {obs.dtype} on "
+        f"{obs.device}; {steps} random steps: {rewards} points, {terms} "
+        f"terminations, {resets} auto-resets; K2 launches per step {per_step:g}"
+    )
+
+    dm = envpool_tpu_torch.make_dm(
+        "Machine2600-v0", num_envs=n, seed=SEED, device=device, rom_path=rom_path,
+        **MACHINE,
+    )
+    ts = dm.reset()
+    _check(bool((ts.step_type == 0).all()), "dm reset step_type")
+    for _ in range(3):
+        ts = dm.step(rng.integers(0, 18, n, dtype=np.int32))
+    _check(ts.observation.obs.shape == (n, 4, *OUT_HW), "dm obs shape")
+    print(f"Machine2600-v0 dm: 3 steps, obs {ts.observation.obs.shape}, "
+          f"step_type {sorted(set(ts.step_type.tolist()))}")
+
+    handle, recv, send, step = env.xla()
+    for _ in range(3):
+        act = torch.as_tensor(rng.integers(0, 18, n, dtype=np.int32), device=device)
+        handle, (obs, rew, term, trunc, info) = step(handle, act)
+    _check(tuple(obs.shape) == (n, 4, *OUT_HW), "functional obs shape")
+    print(f"Machine2600-v0 functional: 3 steps, obs {tuple(obs.shape)}")
+    return per_step
+
+
+def phase_machine_card_vs_cpu(device: str, n: int, steps: int, rom_path: str) -> None:
+    """Machine2600-v0 on the card and on the CPU from the same seed: game
+    state, reward and done identical; obs under the tie rule.  Env 0 holds
+    DOWN and loses its life; the others act at random."""
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch.envs.atari.obs_ties import ObsTies
+    from envpool_tpu_torch.ops.image import tie_rule_violations
+
+    cfg = dict(frame_skip=1, noop_max=1, use_fire_reset=False, **MACHINE)
+    pools = {
+        d: envpool_tpu_torch.make(
+            "Machine2600-v0", env_type="gymnasium", num_envs=n, seed=SEED,
+            device=d, rom_path=rom_path, **cfg,
+        )
+        for d in (device, "cpu")
+    }
+    ties = ObsTies(pools["cpu"].spec.env)
+    outs = {d: p.reset()[0] for d, p in pools.items()}
+    mask = ties.after_reset()
+    rng = np.random.default_rng(SEED)
+    tie_diffs, terms = 0, 0
+    for t in range(steps + 1):
+        if t:
+            act = rng.integers(0, 18, n, dtype=np.int32)
+            act[0] = 5
+            outs = {d: p.step(act) for d, p in pools.items()}
+            a, b = outs[device], outs["cpu"]
+            for i, name in ((1, "reward"), (2, "terminated"), (3, "truncated")):
+                _check(np.array_equal(a[i], b[i]), f"{name} differs at step {t}")
+            terms += int(b[2].sum())
+            mask = ties.after_step(torch.as_tensor(b[4]["elapsed_step"] == 0))
+        ga = pools[device].pool_state.env_state["game"]
+        gb = pools["cpu"].pool_state.env_state["game"]
+        for k in gb:
+            _check(torch.equal(ga[k].cpu(), gb[k]), f"game[{k}] differs at step {t}")
+        oa = torch.as_tensor(outs[device][0] if t else outs[device])
+        ob = torch.as_tensor(outs["cpu"][0] if t else outs["cpu"])
+        bad, at_ties = tie_rule_violations(oa, ob, mask)
+        _check(bad == 0, f"obs differ outside ties at step {t}")
+        tie_diffs += at_ties
+    _check(terms > 0, "no termination in the card vs CPU run")
+    print(
+        f"Machine2600-v0 card vs CPU, {n} envs x {steps} steps: game state, "
+        f"reward, done identical ({terms} terminations); obs tie mismatches "
+        f"{tie_diffs} ({TIE_RULE})"
+    )
+
+
+def _machine_pool(device: str, n: int, rom_path: str):
+    import envpool_tpu_torch
+
+    return envpool_tpu_torch.make(
+        "Machine2600-v0", env_type="gymnasium", num_envs=n, seed=SEED,
+        device=device, numpy_output=False, rom_path=rom_path, **MACHINE,
+    )
+
+
+def phase_machine_throughput(device: str, n: int, steps: int, rom_path: str) -> float:
+    """Functional rollout of Machine2600-v0 (reset, then ``steps`` random
+    steps, as phase_throughput); returns env-steps/s."""
+    import torch
+
+    pool = _machine_pool(device, n, rom_path)
+
+    def policy(ts, gen):
+        return {"action": torch.randint(
+            0, 18, (n,), generator=gen, device=device, dtype=torch.int32)}
+
+    run = pool.engine.make_rollout(policy, steps, collect=False)
+    ps, _ = run(pool.pool_state, SEED)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, ts = run(ps, SEED + 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check(bool((ts["step_type"] >= 0).all()), "rollout output")
+    return steps * n / dt
+
+
+def phase_machine_profile(device: str, n: int, steps: int, rom_path: str) -> None:
+    """``torch.profiler`` over Machine2600-v0 engine steps: K2's share of
+    the device time and launches per step."""
+    import torch
+
+    pool = _machine_pool(device, n, rom_path)
+    eng = pool.engine
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+
+    def act():
+        return {"action": torch.randint(
+            0, 18, (n,), generator=gen, device=device, dtype=torch.int32)}
+
+    ps, _ = eng.reset(pool.pool_state, torch.ones(n, dtype=torch.bool, device=device))
+    ps, _ = eng.step(ps, act())
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ps, _ = eng.step(ps, act())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = _device_events(events)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    _check(device_us > 0, "the profiler saw no device time")
+    k2 = [e for e in kernels if "machine_frame_kernel" in e.key]
+    _check(bool(k2), "the profiler saw no K2 launch")
+    k2_us = sum(e.self_device_time_total for e in k2)
+    k2_count = sum(e.count for e in k2)
+    launches = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+    print(
+        f"profile, Machine2600-v0 engine.step at {n} envs x {steps} steps: wall "
+        f"{wall / steps * 1e3:.3f} ms/step under the profiler, device "
+        f"{device_us / steps / 1e3:.3f} ms/step, idle share "
+        f"{1 - device_us / 1e6 / wall:.3f}, {launches / steps:.0f} kernel launches/step; "
+        f"K2 {k2_us / steps / 1e3:.3f} ms/step over {k2_count / steps:g} launches/step "
+        f"= {k2_us / device_us:.3f} of device time; top kernels (ms/step, launches/step):"
+    )
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / steps / 1e3:8.4f} "
+              f"{e.count / steps:6.0f}  {e.key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -339,6 +686,7 @@ def main() -> int:
         return 1
     import envpool_tpu_torch  # noqa: F401  (fails outside the repository)
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
 
     t_start = time.perf_counter()
     device = "cuda"
@@ -352,34 +700,74 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print(f"K1 build: {fused_pool_resize.build():.1f} s")
-    stats = phase_kernel_vs_plain(device, N_ENVS)
+    # Build both kernels at once (one nvcc each).
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(k.build) for k in (fused_pool_resize, machine_frame)]
+        k1_build, k2_build = (b.result() for b in builds)
+    print(f"K1 build: {k1_build:.1f} s; K2 build: {k2_build:.1f} s (in parallel)")
 
+    # -- PongLite-v5 and K1 --------------------------------------------------
+    stats = phase_kernel_vs_plain(device, N_ENVS)
     fused_pool_resize.launches = 0
     phase_adapters(device, N_ENVS)
-    launches = fused_pool_resize.launches
-    _check(launches > 0, "the main path never launched K1")
-    print(f"K1 launches on the main path: {launches}")
-
-    phase_card_vs_cpu(device, 8, 200)
-    phase_profile(device, N_ENVS, 16)
-    steps_per_s, per_step = phase_throughput(device, N_ENVS, 256)
+    k1_launches = fused_pool_resize.launches
+    _check(k1_launches > 0, "the PongLite-v5 path never launched K1")
+    print(f"K1 launches on the PongLite-v5 path: {k1_launches}")
+    phase_card_vs_cpu(device, 8, 100)
+    phase_profile(device, N_ENVS, 8)
+    steps_per_s, per_step = phase_throughput(device, N_ENVS, 128)
     _check(per_step == 2, f"K1 launches per env step {per_step}, expected 2")
     print(f"K1 launches per env step: {per_step:g} (step branch + reset branch)")
     print(
-        f"PongLite-v5 functional rollout, {N_ENVS} envs x 256 steps: "
+        f"PongLite-v5 functional rollout, {N_ENVS} envs x 128 steps: "
         f"{steps_per_s:,.0f} env-steps/s = {steps_per_s * 4:,.0f} frames/s "
         f"(frame_skip 4) on {smi}"
     )
+
+    # -- Machine2600-v0 and K2 ------------------------------------------------
+    phase_k2_vs_plain(device)
+    k2_stats = phase_k2_timing(device, N_MACHINES)
+    rom_path = _write_cart(_carts().pong_rom())
+    machine_frame.launches = 0
+    fused_pool_resize.launches = 0
+    k2_per_step = phase_machine_adapters(device, N_MACHINES, rom_path)
+    k2_launches = machine_frame.launches
+    k1_machine = fused_pool_resize.launches
+    _check(k2_launches > 0, "the Machine2600 path never launched K2")
+    _check(k1_machine > 0, "the Machine2600 path never launched K1")
+    # frame_skip 4 + noop_max 30 + the fire tick: the reset branch runs for
+    # every env on every step, as in the JAX engine.
+    _check(k2_per_step == 35, f"K2 launches per env step {k2_per_step}, expected 35")
+    print(f"K2 launches on the Machine2600 path: {k2_launches} "
+          f"({k2_per_step:g} per env step); K1 launches there: {k1_machine}")
+    phase_machine_card_vs_cpu(device, 8, 12, rom_path)
+    phase_machine_profile(device, N_MACHINES, 2, rom_path)
+    machine_steps = phase_machine_throughput(device, N_MACHINES, 16, rom_path)
+    print(
+        f"Machine2600-v0 functional rollout, {N_MACHINES} envs x 16 steps: "
+        f"{machine_steps:,.1f} env-steps/s = {machine_steps * 35:,.0f} emulated "
+        f"frames/s (35 per env step) on {smi}"
+    )
+
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
-    kernels = [{
-        "name": "K1",
-        "route": "cuda",
-        "source": "envpool_tpu_torch/csrc/pool_resize.cu",
-        "replaces": "envpool_tpu/ops/pallas_image.py:33",
-        "launches": launches,
-        **stats,
-    }]
+    kernels = [
+        {
+            "name": "K1",
+            "route": "cuda",
+            "source": "envpool_tpu_torch/csrc/pool_resize.cu",
+            "replaces": "envpool_tpu/ops/pallas_image.py:33",
+            "launches": k1_launches,
+            **stats,
+        },
+        {
+            "name": "K2",
+            "route": "cuda",
+            "source": "envpool_tpu_torch/csrc/machine_frame.cu",
+            "replaces": "envpool_tpu/envs/atari/machine_pallas.py:33",
+            "launches": k2_launches,
+            **k2_stats,
+        },
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -158,7 +158,7 @@ class ArcadeEnv(TorchEnv):
 
     def __init__(self, config):
         super().__init__(config)
-        self.game = self.GAME_CLS(self.device)
+        self.game = self._make_game()
         mode = int(config["mode"])
         difficulty = int(config["difficulty"])
         if mode >= 0:
@@ -190,6 +190,9 @@ class ArcadeEnv(TorchEnv):
             )
         else:
             self._full_map = None
+
+    def _make_game(self) -> ArcadeGame:
+        return self.GAME_CLS(self.device)
 
     # -- config helpers ----------------------------------------------------
 

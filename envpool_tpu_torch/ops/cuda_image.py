@@ -3,7 +3,7 @@
 Replaces the Pallas TPU kernel ``envpool_tpu/ops/pallas_image.py::_kernel``
 (``fused_pool_resize``).  The kernel source is ``csrc/pool_resize.cu``; it
 is built for ``sm_90a`` at first use with
-``torch.utils.cpp_extension.load`` into ``envpool_tpu_torch/_build/`` and
+``torch.utils.cpp_extension.load`` into ``envpool_tpu_torch/_build/pool_resize/`` and
 called through its plain C interface with ``ctypes``.
 
 :data:`fused_pool_resize` takes ``[N, 2, H, W]`` float32 frames and returns
@@ -29,7 +29,7 @@ __all__ = ["fused_pool_resize"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "pool_resize.cu"
-_BUILD_DIR = _PKG / "_build"
+_BUILD_DIR = _PKG / "_build" / "pool_resize"
 _CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 # Largest dynamic shared memory a Hopper block can use (227 KB).
 _MAX_SMEM = 232448
