@@ -216,9 +216,11 @@ def phase_adapters(device: str, n: int) -> None:
     print("truncation at 40 steps and auto-reset: ok")
 
 
-def phase_card_vs_cpu(device: str, n: int, steps: int) -> None:
+def phase_card_vs_cpu(device: str, task: str, n: int, steps: int, n_actions: int,
+                      hold: int | None = None, **make_kwargs) -> None:
     """The same seed on the card and on the CPU: game state, reward, done
-    identical; obs equal except at exact .5 ties."""
+    identical; obs equal except at exact .5 ties.  With ``hold``, env 0
+    takes that action every step and the run must see a termination."""
     import torch
 
     import envpool_tpu_torch
@@ -227,8 +229,8 @@ def phase_card_vs_cpu(device: str, n: int, steps: int) -> None:
 
     pools = {
         d: envpool_tpu_torch.make(
-            "PongLite-v5", env_type="gymnasium", num_envs=n, seed=SEED,
-            device=d, max_episode_steps=150,
+            task, env_type="gymnasium", num_envs=n, seed=SEED, device=d,
+            **make_kwargs,
         )
         for d in (device, "cpu")
     }
@@ -236,14 +238,17 @@ def phase_card_vs_cpu(device: str, n: int, steps: int) -> None:
     outs = {d: p.reset()[0] for d, p in pools.items()}
     mask = ties.after_reset()
     rng = np.random.default_rng(SEED)
-    tie_diffs = 0
+    tie_diffs, terms = 0, 0
     for t in range(steps + 1):
         if t:
-            act = rng.integers(0, 6, n, dtype=np.int32)
+            act = rng.integers(0, n_actions, n, dtype=np.int32)
+            if hold is not None:
+                act[0] = hold
             outs = {d: p.step(act) for d, p in pools.items()}
             a, b = outs[device], outs["cpu"]
             for i, name in ((1, "reward"), (2, "terminated"), (3, "truncated")):
                 _check(np.array_equal(a[i], b[i]), f"{name} differs at step {t}")
+            terms += int(b[2].sum())
             mask = ties.after_step(torch.as_tensor(b[4]["elapsed_step"] == 0))
         ga = pools[device].pool_state.env_state["game"]
         gb = pools["cpu"].pool_state.env_state["game"]
@@ -254,28 +259,36 @@ def phase_card_vs_cpu(device: str, n: int, steps: int) -> None:
         bad, at_ties = tie_rule_violations(oa, ob, mask)
         _check(bad == 0, f"obs differ outside ties at step {t}")
         tie_diffs += at_ties
+    _check(hold is None or terms > 0, "no termination in the card vs CPU run")
     print(
-        f"card vs CPU, {n} envs x {steps} steps: game state, reward, done "
-        f"identical; obs tie mismatches {tie_diffs} ({TIE_RULE})"
+        f"{task} card vs CPU, {n} envs x {steps} steps: game state, reward, "
+        f"done identical ({terms} terminations); obs tie mismatches "
+        f"{tie_diffs} ({TIE_RULE})"
     )
 
 
-def phase_throughput(device: str, n: int, steps: int) -> tuple[float, float]:
+def _pool(device: str, task: str, n: int, **make_kwargs):
+    import envpool_tpu_torch
+
+    return envpool_tpu_torch.make(
+        task, env_type="gymnasium", num_envs=n, seed=SEED, device=device,
+        numpy_output=False, **make_kwargs,
+    )
+
+
+def phase_throughput(device: str, task: str, n: int, steps: int, n_actions: int,
+                     **make_kwargs) -> tuple[float, float]:
     """Functional rollout as ``bench.py`` runs it (reset, then ``steps``
     random steps); returns (env-steps/s, K1 launches per env step)."""
     import torch
 
-    import envpool_tpu_torch
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
 
-    pool = envpool_tpu_torch.make(
-        "PongLite-v5", env_type="gymnasium", num_envs=n, seed=SEED,
-        device=device, numpy_output=False,
-    )
+    pool = _pool(device, task, n, **make_kwargs)
 
     def policy(ts, gen):
         return {"action": torch.randint(
-            0, 6, (n,), generator=gen, device=device, dtype=torch.int32)}
+            0, n_actions, (n,), generator=gen, device=device, dtype=torch.int32)}
 
     run = pool.engine.make_rollout(policy, steps, collect=False)
     ps, _ = run(pool.pool_state, SEED)  # warm-up
@@ -300,27 +313,24 @@ def _device_events(events) -> list:
             and e.self_device_time_total > 0]
 
 
-def phase_profile(device: str, n: int, steps: int) -> None:
-    """``torch.profiler`` over ``steps`` engine steps: device time, idle
-    share, launches per step and the kernels that take the most time."""
+def phase_profile(device: str, task: str, n: int, steps: int, n_actions: int,
+                  warmup: int, kernel: str | None = None, **make_kwargs) -> None:
+    """``torch.profiler`` over ``steps`` engine steps after ``warmup`` ones:
+    device time, idle share, launches per step, the kernels that take the
+    most time and, given a kernel's name, its share of the device time."""
     import torch
 
-    import envpool_tpu_torch
-
-    pool = envpool_tpu_torch.make(
-        "PongLite-v5", env_type="gymnasium", num_envs=n, seed=SEED,
-        device=device, numpy_output=False,
-    )
+    pool = _pool(device, task, n, **make_kwargs)
     eng = pool.engine
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
 
     def act():
         return {"action": torch.randint(
-            0, 6, (n,), generator=gen, device=device, dtype=torch.int32)}
+            0, n_actions, (n,), generator=gen, device=device, dtype=torch.int32)}
 
     ps, _ = eng.reset(pool.pool_state, torch.ones(n, dtype=torch.bool, device=device))
-    for _ in range(4):
+    for _ in range(warmup):
         ps, _ = eng.step(ps, act())
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -337,11 +347,20 @@ def phase_profile(device: str, n: int, steps: int) -> None:
     _check(device_us > 0, "the profiler saw no device time")
     launches = sum(e.count for e in events if e.key in (
         "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+    share = ""
+    if kernel is not None:
+        mine = [e for e in kernels if kernel in e.key]
+        _check(bool(mine), f"the profiler saw no {kernel} launch")
+        mine_us = sum(e.self_device_time_total for e in mine)
+        share = (f"{kernel} {mine_us / steps / 1e3:.3f} ms/step over "
+                 f"{sum(e.count for e in mine) / steps:g} launches/step = "
+                 f"{mine_us / device_us:.3f} of device time; ")
     print(
-        f"profile, engine.step at {n} envs x {steps} steps: wall {wall / steps * 1e3:.3f} "
-        f"ms/step under the profiler, device {device_us / steps / 1e3:.3f} ms/step, "
-        f"idle share {1 - device_us / 1e6 / wall:.3f}, {launches / steps:.0f} "
-        "kernel launches/step; top kernels (ms/step, launches/step):"
+        f"profile, {task} engine.step at {n} envs x {steps} steps: wall "
+        f"{wall / steps * 1e3:.3f} ms/step under the profiler, device "
+        f"{device_us / steps / 1e3:.3f} ms/step, idle share "
+        f"{1 - device_us / 1e6 / wall:.3f}, {launches / steps:.0f} kernel "
+        f"launches/step; {share}top kernels (ms/step, launches/step):"
     )
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / steps / 1e3:8.4f} "
@@ -375,9 +394,24 @@ def _machines(rom, n: int, device, seed: int, differ: bool = True) -> dict:
     return g
 
 
+def _k2_vs_plain(got: dict, plain: dict, where: str) -> int:
+    """Every state leaf and the lines buffer of K2's frame bit-equal to the
+    plain frame's; returns the largest absolute difference over them."""
+    import torch
+
+    err = 0
+    for k in plain:
+        a, b = got[k].to(torch.int64), plain[k].to(torch.int64)
+        if a.numel():
+            err = max(err, int((a - b).abs().max()))
+    bad = [k for k in plain if not torch.equal(got[k], plain[k])]
+    _check(not bad, f"K2 differs from plain on {where}: {bad} (max_abs_err {err})")
+    return err
+
+
 def phase_k2_vs_plain(device: str) -> int:
     """K2 against its plain version on every cart, and the collision bits
-    on random register files; returns the number of mismatched leaves."""
+    on random register files; returns the largest absolute difference."""
     import torch
 
     from envpool_tpu_torch.envs.atari import machine_kernel
@@ -390,7 +424,7 @@ def phase_k2_vs_plain(device: str) -> int:
         ("f6", carts.f6_rom(), 8, 2, True),
         ("random0", carts.random_rom(0), 8, 1, False),
     ]
-    bad_total = 0
+    max_err = 0
     for name, rom, n, frames, differ in cases:
         tables = machine_kernel.build_tables(rom, device)
         got = plain = _machines(rom, n, device, SEED, differ)
@@ -398,9 +432,7 @@ def phase_k2_vs_plain(device: str) -> int:
             got = machine_frame(got, tables)
             plain = machine_kernel.frame(plain, tables)
             torch.cuda.synchronize()
-            bad = [k for k in plain if not torch.equal(got[k], plain[k])]
-            bad_total += len(bad)
-            _check(not bad, f"K2 differs from plain on {name} frame {f}: {bad}")
+            max_err = max(max_err, _k2_vs_plain(got, plain, f"{name} frame {f}"))
         print(f"K2 vs plain [{name}, {n} lanes x {frames} frames]: 0 mismatched "
               f"leaves of {len(plain)}; cycles {int(got['cycles'][0])}, "
               f"bank {int(got['bank'][0])}, scanline {int(got['scanline'][0])}")
@@ -412,16 +444,16 @@ def phase_k2_vs_plain(device: str) -> int:
     got = machine_frame.collisions(rec_t.to(device)).cpu()
     want = machine_kernel.collisions(rec_t).to(torch.int32)
     bad = int((got != want).sum())
-    bad_total += bad
     _check(bad == 0, "K2's collision bits differ from the plain version")
     print(f"K2 collision bits vs plain on 512 random records: {bad} mismatches")
-    return bad_total
+    return max(max_err, int((got - want).abs().max()))
 
 
 def phase_k2_timing(device: str, n: int) -> dict:
     """K2 frames/s and emulated 6502 cycles/s on the pong cart at ``n``
     machines in steady full frames (after 6 warm-up frames, as bench.py
-    does), and the plain version's time for one frame."""
+    does), and the plain version's time for one frame.  K2's next frame
+    of the same state is then held against that plain frame."""
     import torch
 
     from envpool_tpu_torch.envs.atari import machine_kernel
@@ -453,10 +485,15 @@ def phase_k2_timing(device: str, n: int) -> dict:
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    machine_kernel.frame(state["g"], tables)
+    plain = machine_kernel.frame(state["g"], tables)
     t1.record()
     torch.cuda.synchronize()
     plain_ms = t0.elapsed_time(t1)
+    got = machine_frame(state["g"], tables)
+    torch.cuda.synchronize()
+    max_err = _k2_vs_plain(got, plain, f"pong, {n} machines, steady frame")
+    print(f"K2 vs plain [pong, {n} lanes, frame 27]: 0 mismatched leaves of "
+          f"{len(plain)}")
     # Bytes the frame must move: every state leaf in and out, the line
     # records it writes, and the cart and decode table once.
     per_machine = (NS + 128 + 64 + 8) * 4 * 2 + 192 * 24 * 4
@@ -473,7 +510,7 @@ def phase_k2_timing(device: str, n: int) -> dict:
         "chain of emulated instructions bounds it)"
     )
     return {
-        "max_abs_err": 0,
+        "max_abs_err": max_err,
         "ms": k2_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -500,10 +537,7 @@ def phase_machine_adapters(device: str, n: int, rom_path: str) -> int:
     import envpool_tpu_torch
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
 
-    env = envpool_tpu_torch.make(
-        "Machine2600-v0", env_type="gymnasium", num_envs=n, seed=SEED,
-        device=device, numpy_output=False, rom_path=rom_path, **MACHINE,
-    )
+    env = _pool(device, "Machine2600-v0", n, rom_path=rom_path, **MACHINE)
     obs, info = env.reset()
     rng = np.random.default_rng(SEED)
     rewards, terms, resets = 0, 0, 0
@@ -549,135 +583,6 @@ def phase_machine_adapters(device: str, n: int, rom_path: str) -> int:
     return per_step
 
 
-def phase_machine_card_vs_cpu(device: str, n: int, steps: int, rom_path: str) -> None:
-    """Machine2600-v0 on the card and on the CPU from the same seed: game
-    state, reward and done identical; obs under the tie rule.  Env 0 holds
-    DOWN and loses its life; the others act at random."""
-    import torch
-
-    import envpool_tpu_torch
-    from envpool_tpu_torch.envs.atari.obs_ties import ObsTies
-    from envpool_tpu_torch.ops.image import tie_rule_violations
-
-    cfg = dict(frame_skip=1, noop_max=1, use_fire_reset=False, **MACHINE)
-    pools = {
-        d: envpool_tpu_torch.make(
-            "Machine2600-v0", env_type="gymnasium", num_envs=n, seed=SEED,
-            device=d, rom_path=rom_path, **cfg,
-        )
-        for d in (device, "cpu")
-    }
-    ties = ObsTies(pools["cpu"].spec.env)
-    outs = {d: p.reset()[0] for d, p in pools.items()}
-    mask = ties.after_reset()
-    rng = np.random.default_rng(SEED)
-    tie_diffs, terms = 0, 0
-    for t in range(steps + 1):
-        if t:
-            act = rng.integers(0, 18, n, dtype=np.int32)
-            act[0] = 5
-            outs = {d: p.step(act) for d, p in pools.items()}
-            a, b = outs[device], outs["cpu"]
-            for i, name in ((1, "reward"), (2, "terminated"), (3, "truncated")):
-                _check(np.array_equal(a[i], b[i]), f"{name} differs at step {t}")
-            terms += int(b[2].sum())
-            mask = ties.after_step(torch.as_tensor(b[4]["elapsed_step"] == 0))
-        ga = pools[device].pool_state.env_state["game"]
-        gb = pools["cpu"].pool_state.env_state["game"]
-        for k in gb:
-            _check(torch.equal(ga[k].cpu(), gb[k]), f"game[{k}] differs at step {t}")
-        oa = torch.as_tensor(outs[device][0] if t else outs[device])
-        ob = torch.as_tensor(outs["cpu"][0] if t else outs["cpu"])
-        bad, at_ties = tie_rule_violations(oa, ob, mask)
-        _check(bad == 0, f"obs differ outside ties at step {t}")
-        tie_diffs += at_ties
-    _check(terms > 0, "no termination in the card vs CPU run")
-    print(
-        f"Machine2600-v0 card vs CPU, {n} envs x {steps} steps: game state, "
-        f"reward, done identical ({terms} terminations); obs tie mismatches "
-        f"{tie_diffs} ({TIE_RULE})"
-    )
-
-
-def _machine_pool(device: str, n: int, rom_path: str):
-    import envpool_tpu_torch
-
-    return envpool_tpu_torch.make(
-        "Machine2600-v0", env_type="gymnasium", num_envs=n, seed=SEED,
-        device=device, numpy_output=False, rom_path=rom_path, **MACHINE,
-    )
-
-
-def phase_machine_throughput(device: str, n: int, steps: int, rom_path: str) -> float:
-    """Functional rollout of Machine2600-v0 (reset, then ``steps`` random
-    steps, as phase_throughput); returns env-steps/s."""
-    import torch
-
-    pool = _machine_pool(device, n, rom_path)
-
-    def policy(ts, gen):
-        return {"action": torch.randint(
-            0, 18, (n,), generator=gen, device=device, dtype=torch.int32)}
-
-    run = pool.engine.make_rollout(policy, steps, collect=False)
-    ps, _ = run(pool.pool_state, SEED)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ps, ts = run(ps, SEED + 1)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    _check(bool((ts["step_type"] >= 0).all()), "rollout output")
-    return steps * n / dt
-
-
-def phase_machine_profile(device: str, n: int, steps: int, rom_path: str) -> None:
-    """``torch.profiler`` over Machine2600-v0 engine steps: K2's share of
-    the device time and launches per step."""
-    import torch
-
-    pool = _machine_pool(device, n, rom_path)
-    eng = pool.engine
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED)
-
-    def act():
-        return {"action": torch.randint(
-            0, 18, (n,), generator=gen, device=device, dtype=torch.int32)}
-
-    ps, _ = eng.reset(pool.pool_state, torch.ones(n, dtype=torch.bool, device=device))
-    ps, _ = eng.step(ps, act())
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            ps, _ = eng.step(ps, act())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    kernels = _device_events(events)
-    device_us = sum(e.self_device_time_total for e in kernels)
-    _check(device_us > 0, "the profiler saw no device time")
-    k2 = [e for e in kernels if "machine_frame_kernel" in e.key]
-    _check(bool(k2), "the profiler saw no K2 launch")
-    k2_us = sum(e.self_device_time_total for e in k2)
-    k2_count = sum(e.count for e in k2)
-    launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
-    print(
-        f"profile, Machine2600-v0 engine.step at {n} envs x {steps} steps: wall "
-        f"{wall / steps * 1e3:.3f} ms/step under the profiler, device "
-        f"{device_us / steps / 1e3:.3f} ms/step, idle share "
-        f"{1 - device_us / 1e6 / wall:.3f}, {launches / steps:.0f} kernel launches/step; "
-        f"K2 {k2_us / steps / 1e3:.3f} ms/step over {k2_count / steps:g} launches/step "
-        f"= {k2_us / device_us:.3f} of device time; top kernels (ms/step, launches/step):"
-    )
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  {e.self_device_time_total / steps / 1e3:8.4f} "
-              f"{e.count / steps:6.0f}  {e.key[:90]}")
-
-
 def main() -> int:
     import torch
 
@@ -713,9 +618,9 @@ def main() -> int:
     k1_launches = fused_pool_resize.launches
     _check(k1_launches > 0, "the PongLite-v5 path never launched K1")
     print(f"K1 launches on the PongLite-v5 path: {k1_launches}")
-    phase_card_vs_cpu(device, 8, 100)
-    phase_profile(device, N_ENVS, 8)
-    steps_per_s, per_step = phase_throughput(device, N_ENVS, 128)
+    phase_card_vs_cpu(device, "PongLite-v5", 8, 100, 6, max_episode_steps=150)
+    phase_profile(device, "PongLite-v5", N_ENVS, 8, 6, warmup=4)
+    steps_per_s, per_step = phase_throughput(device, "PongLite-v5", N_ENVS, 128, 6)
     _check(per_step == 2, f"K1 launches per env step {per_step}, expected 2")
     print(f"K1 launches per env step: {per_step:g} (step branch + reset branch)")
     print(
@@ -725,9 +630,11 @@ def main() -> int:
     )
 
     # -- Machine2600-v0 and K2 ------------------------------------------------
-    phase_k2_vs_plain(device)
+    k2_err = phase_k2_vs_plain(device)
     k2_stats = phase_k2_timing(device, N_MACHINES)
+    k2_stats["max_abs_err"] = max(k2_err, k2_stats["max_abs_err"])
     rom_path = _write_cart(_carts().pong_rom())
+    machine = dict(rom_path=rom_path, **MACHINE)
     machine_frame.launches = 0
     fused_pool_resize.launches = 0
     k2_per_step = phase_machine_adapters(device, N_MACHINES, rom_path)
@@ -740,9 +647,15 @@ def main() -> int:
     _check(k2_per_step == 35, f"K2 launches per env step {k2_per_step}, expected 35")
     print(f"K2 launches on the Machine2600 path: {k2_launches} "
           f"({k2_per_step:g} per env step); K1 launches there: {k1_machine}")
-    phase_machine_card_vs_cpu(device, 8, 12, rom_path)
-    phase_machine_profile(device, N_MACHINES, 2, rom_path)
-    machine_steps = phase_machine_throughput(device, N_MACHINES, 16, rom_path)
+    # 40 envs: two blocks of K2, the second partly full.  Env 0 holds DOWN
+    # and loses its life.
+    phase_card_vs_cpu(device, "Machine2600-v0", 40, 12, 18, hold=5, frame_skip=1,
+                      noop_max=1, use_fire_reset=False, **machine)
+    phase_profile(device, "Machine2600-v0", N_MACHINES, 2, 18, warmup=1,
+                  kernel="machine_frame_kernel", **machine)
+    machine_steps, k1_per_step = phase_throughput(
+        device, "Machine2600-v0", N_MACHINES, 16, 18, **machine)
+    _check(k1_per_step == 2, f"K1 launches per Machine2600 step {k1_per_step}, expected 2")
     print(
         f"Machine2600-v0 functional rollout, {N_MACHINES} envs x 16 steps: "
         f"{machine_steps:,.1f} env-steps/s = {machine_steps * 35:,.0f} emulated "

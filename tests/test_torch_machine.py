@@ -95,6 +95,27 @@ def test_frame_matches_jax(cart):
         assert len(set(g["ram"][:, 0x82 & 0x7F].tolist())) > 1  # inputs differ
 
 
+def test_diverging_lanes_match_jax_one_lane_at_a_time():
+    """Lanes with their own inputs and RAM on a random cart: each lane of
+    the port's batch equals JAX run on that lane alone (B=1), where JAX's
+    batch-wide fetch rule is the lane's own.  This is the per-lane rule the
+    port implements."""
+    rom = carts.random_rom(0)
+    n = 4
+    tables = jmk.build_tables(rom)
+    args = [jnp.asarray(tables[k]) for k in ("rom2d", "decode", "meta", "indpair")]
+    ref = _jax_frame(tables["nbanks"])
+    m, g = _boot(rom, n, seed=5)
+    ram = np.random.default_rng(5).integers(0, 256, (n, 128)).astype(np.int32)
+    m = {**m, "ram": jnp.asarray(ram)}
+    g["ram"] = torch.as_tensor(ram)
+    g = machine_kernel.frame(g, machine_kernel.build_tables(rom, "cpu"))
+    for i in range(n):
+        lane = jax.device_get(ref(jax.tree_util.tree_map(lambda x: x[i:i + 1], m), *args))
+        _assert_same(lane, {k: v[i:i + 1] for k, v in g.items()}, f"lane {i}")
+    assert len(set(g["pc"].tolist())) > 1  # the lanes took different paths
+
+
 def test_wrapper_runs_plain_version_on_cpu():
     """On CPU tensors K2's wrapper is the plain frame and launches nothing;
     it refuses a state of the wrong dtype."""
@@ -155,10 +176,13 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cart", ["pong", "f8", "f6", "random0"])
-def test_k2_matches_plain_on_card(cuda_device, cart):
+@pytest.mark.parametrize("cart,n", [
+    ("pong", 32), ("pong", 100), ("f8", 4), ("f6", 4), ("random0", 4),
+])
+def test_k2_matches_plain_on_card(cuda_device, cart, n):
+    """K2 against the plain version over three frames; 100 lanes spread
+    over four blocks of 32, the last one partly full."""
     rom = CARTS[cart]()
-    n = 32 if cart == "pong" else 4
     swcha, inpt4 = carts.lane_inputs(n, 1)
     tables = machine_kernel.build_tables(rom, cuda_device)
     g = tia.attach_tia(cpu6502.make_machine(rom, n, cuda_device))
