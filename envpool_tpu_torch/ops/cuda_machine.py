@@ -42,9 +42,12 @@ _FILES = {"ram": (128,), "tia": (64,), "cx": (8,), "lines": (VISIBLE_LINES, NREG
 class MachineFrame:
     """The K2 wrapper: builds, checks, launches and counts launches."""
 
-    def __init__(self) -> None:
+    def __init__(self, source: pathlib.Path = _SOURCE,
+                 build_dir: pathlib.Path = _BUILD_DIR,
+                 name: str = "envpool_tpu_torch_machine_frame") -> None:
         self.launches = 0
         self._lib = None
+        self._source, self._build_dir, self._name = source, build_dir, name
 
     def build(self) -> float:
         """Build (or load the cached build of) the kernel; seconds taken."""
@@ -56,12 +59,12 @@ class MachineFrame:
         if self._lib is None:
             from torch.utils.cpp_extension import load
 
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            self._build_dir.mkdir(parents=True, exist_ok=True)
             path = load(
-                name="envpool_tpu_torch_machine_frame",
-                sources=[str(_SOURCE)],
+                name=self._name,
+                sources=[str(self._source)],
                 extra_cuda_cflags=_CUDA_FLAGS,
-                build_directory=str(_BUILD_DIR),
+                build_directory=str(self._build_dir),
                 is_python_module=False,
                 verbose=False,
             )
