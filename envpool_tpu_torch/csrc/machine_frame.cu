@@ -14,37 +14,59 @@
 // beam or scanline reached 262.
 //
 // Bound: neither bytes nor arithmetic rate.  Device memory sees only the
-// state in and out and 192 * 24 * 4 bytes of lines per machine; the cart
-// is read once per block.  What bounds the kernel is the serial chain of
-// emulated instructions of one machine (~4k per frame on the pong cart),
-// each a dependent sequence of decode, shared-memory reads and a switch,
-// with only N threads in flight.  The design keeps that chain short: one
-// thread per machine; its registers in registers; the cart, the decode
-// table and every machine's RAM, TIA register file and collision latches
-// in shared memory (byte-major, so a warp in lockstep touches one word per
-// address); blocks of 32 threads so that N = 1024 machines spread over 32
-// SMs instead of crowding a few.  Collisions use the bit-parallel words of
-// machine_kernel._pf_words / _player_words: each object's 160-pixel line
-// is five 32-bit words, and a pair test is five ANDs.
+// state in and out and 192 * 24 * 4 bytes of lines per machine.  What
+// bounds the kernel is the serial chain of emulated instructions of one
+// machine (~3k per pong frame): each instruction's fetch is a load whose
+// address depends on the instruction before it, so a frame takes at least
+// (the most instructions any machine runs) x (one dependent shared-memory
+// load).  The design shortens what each link of that chain costs:
+//
+// * One 64-bit fetch word per cart offset (machine_kernel.build_tables'
+//   "fetch": the three instruction bytes and the decode of the first, the
+//   JAX meta row) replaces three byte fetches and a decode lookup; the bus
+//   fetch stays only where the JAX rule asks for it (PC below $1000 or in
+//   a 4K window's last two bytes).  The cart's bytes are the words' low
+//   bytes, so there is no second copy of the ROM.
+// * What every instruction reads stays in registers: the 6502 and beam
+//   registers, the five object positions (indexed by constants only) and
+//   the RESMP centring offsets, refreshed on writes to NUSIZ0/1 and
+//   RESMP0/1.
+// * A group of lanes runs one machine (kMpw machines per warp), all of
+//   them through the same instruction chain, so a warp diverges only
+//   between its machines, and never with one machine per warp.  The lanes
+//   of a group share the line's parallel work: the five 32-pixel words of
+//   the collision test (OR-reduced across the group), the 24 columns of
+//   the record row, the eight latches, HMOVE's five motions and the HMCLR
+//   and CXCLR clears.
+// * Blocks of 8 machines, so 1024 machines spread over 128 SMs.  The
+//   fetch table goes to shared memory with one bulk asynchronous copy per
+//   4K bank (cp.async.bulk, TMA's 1-D form, completing on an mbarrier)
+//   while the block loads its machines' state; machine files are
+//   byte-major ([byte][machine]), so the coalesced state load and store
+//   cost one pass each.  A 6502 has no matrix products: tensor cores have
+//   no part here.
 //
 // Arithmetic is unsigned where it may wrap (cycles), as JAX lets int32
 // wrap; shifts never take negative amounts.
 //
 // Plain C interface, loaded with ctypes: the wrapper checks shapes, dtypes,
-// devices and contiguity before it calls machine_frame_launch.
+// devices, alignment and contiguity before it calls machine_frame_launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;
 constexpr int kSlots = 262;
 constexpr int kBudget = 40;
 constexpr int kFirstVisible = 40;
 constexpr int kVisible = 192;
 constexpr int kNReg = 24;
 constexpr int kCyclesPerLine = 76;
+constexpr int kBankWords = 4096;  // fetch words per 4K bank
+
+// A machine's byte files: RAM, TIA register file, collision latches.
+constexpr int kRam = 0, kTia = 128, kCx = 192, kFiles = 200;
 
 // Scalar rows of the packed [NS, N] state: machine_kernel.SCALARS order.
 enum Scalar {
@@ -67,8 +89,51 @@ enum Op {
 constexpr uint32_t F_C = 0x01, F_Z = 0x02, F_I = 0x04, F_D = 0x08,
                    F_B = 0x10, F_U = 0x20, F_V = 0x40, F_N = 0x80;
 
+// Mode classes as bit sets over Mode.
+constexpr uint32_t kMemModes = (1u << ZP) | (1u << ZPX) | (1u << ZPY) |
+                               (1u << ABS) | (1u << ABX) | (1u << ABY) |
+                               (1u << IND) | (1u << IZX) | (1u << IZY);
+constexpr uint32_t kZeroPage = (1u << ZP) | (1u << ZPX) | (1u << ZPY);
+constexpr uint32_t kIndexX = (1u << ZPX) | (1u << ABX);
+constexpr uint32_t kIndexY = (1u << ZPY) | (1u << ABY);
+
+// Line-record columns (tia.R_*).
+enum Rec {
+  R_PF0, R_PF1, R_PF2, R_COLUPF, R_COLUBK, R_CTRLPF, R_COLUP0, R_COLUP1,
+  R_GRP0, R_GRP1, R_POSP0, R_POSP1, R_NUSIZ0, R_NUSIZ1, R_ENAM0, R_ENAM1,
+  R_ENABL, R_POSM0, R_POSM1, R_POSBL, R_REFP0, R_REFP1, R_RESMP0, R_RESMP1
+};
+
+// The TIA register each record column copies (0: a position column), as
+// three words of eight byte-sized entries so that a lane can look its
+// column up without a memory load.
+constexpr uint8_t kRecReg[kNReg] = {
+    0x0D, 0x0E, 0x0F, 0x08, 0x09, 0x0A, 0x06, 0x07,
+    0x1B, 0x1C, 0x00, 0x00, 0x04, 0x05, 0x1D, 0x1E,
+    0x1F, 0x00, 0x00, 0x00, 0x0B, 0x0C, 0x28, 0x29};
+
+constexpr uint64_t pack8(int first) {
+  uint64_t v = 0;
+  for (int i = 0; i < 8; ++i) {
+    v |= static_cast<uint64_t>(kRecReg[first + i]) << (8 * i);
+  }
+  return v;
+}
+constexpr uint64_t kRecReg0 = pack8(0), kRecReg1 = pack8(8),
+                   kRecReg2 = pack8(16);
+
+// Block geometry for kMpw machines per warp (kLanes lanes per machine).
+template <int kMpw>
+struct Geometry {
+  static constexpr int kLanes = 32 / kMpw;
+  static constexpr int kWarps = kMpw >= 8 ? 1 : 8 / kMpw;
+  static constexpr int kMachines = kWarps * kMpw;  // per block
+  static constexpr int kThreads = 32 * kWarps;
+};
+
 // ---------------------------------------------------------------------------
-// Collision words (machine_kernel._rev8 ... _collisions)
+// Collision words (machine_kernel._rev8 ... _collisions), one 32-pixel
+// word w (pixels 32w .. 32w + 31) at a time.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t rev8(uint32_t x) {
@@ -91,22 +156,17 @@ __device__ __forceinline__ uint32_t spread4(uint32_t x) {
   return x * 0xFu;
 }
 
-// ORs ``pat`` (bit q = pixel pos + q) into the five line words.
-__device__ __forceinline__ void place_bits(uint32_t* w, uint32_t pat,
-                                           int pos) {
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const int sh = pos - 32 * k;
-    if (sh >= 0 && sh < 32) {
-      w[k] |= pat << sh;
-    } else if (sh < 0 && sh > -32) {
-      w[k] |= pat >> (-sh);
-    }
-  }
+// Word w of ``pat`` placed at pixel ``pos`` (bit q = pixel pos + q).
+__device__ __forceinline__ uint32_t place_word(uint32_t pat, int pos, int w) {
+  const int sh = pos - 32 * w;
+  if (sh >= 0 && sh < 32) return pat << sh;
+  if (sh < 0 && sh > -32) return pat >> (-sh);
+  return 0u;
 }
 
-__device__ void pf_words(uint32_t* w, uint32_t pf0, uint32_t pf1,
-                         uint32_t pf2, uint32_t ctrl) {
+__device__ __forceinline__ uint32_t pf_word(uint32_t pf0, uint32_t pf1,
+                                            uint32_t pf2, uint32_t ctrl,
+                                            int w) {
   const uint32_t seq = ((pf0 >> 4) & 0xFu) | (rev8(pf1 & 0xFFu) << 4) |
                        ((pf2 & 0xFFu) << 12);
   const uint32_t rev = (rev8(seq & 0xFFu) << 12) |
@@ -118,73 +178,71 @@ __device__ void pf_words(uint32_t* w, uint32_t pf0, uint32_t pf1,
   const uint32_t r0 = spread4(right & 0xFFu),
                  r1 = spread4((right >> 8) & 0xFFu),
                  r2 = spread4((right >> 16) & 0xFu);
-  w[0] = l0;
-  w[1] = l1;
-  w[2] = (l2 & 0xFFFFu) | (r0 << 16);
-  w[3] = ((r0 >> 16) & 0xFFFFu) | (r1 << 16);
-  w[4] = ((r1 >> 16) & 0xFFFFu) | ((r2 & 0xFFFFu) << 16);
+  return w == 0   ? l0
+         : w == 1 ? l1
+         : w == 2 ? (l2 & 0xFFFFu) | (r0 << 16)
+         : w == 3 ? ((r0 >> 16) & 0xFFFFu) | (r1 << 16)
+                  : ((r1 >> 16) & 0xFFFFu) | ((r2 & 0xFFFFu) << 16);
 }
 
-__device__ void player_words(uint32_t* w, uint32_t grp, int pos,
-                             uint32_t nusiz, uint32_t refp) {
+__device__ __forceinline__ uint32_t player_word(uint32_t grp, int pos,
+                                                uint32_t nusiz, uint32_t refp,
+                                                int w) {
   const uint32_t mode7 = nusiz & 7u;
   const uint32_t base = (refp & 0x08u) ? grp : rev8(grp & 0xFFu);
   const uint32_t pat = mode7 == 5 ? spread2(base & 0xFFu)
                        : mode7 == 7 ? spread4(base & 0xFFu)
                                     : base;
-#pragma unroll
-  for (int k = 0; k < 5; ++k) w[k] = 0;
-  place_bits(w, pat, pos);
-  if (mode7 == 1 || mode7 == 3) place_bits(w, pat, pos + 16);
-  if (mode7 == 2 || mode7 == 3 || mode7 == 6) place_bits(w, pat, pos + 32);
-  if (mode7 == 4 || mode7 == 6) place_bits(w, pat, pos + 64);
+  uint32_t out = place_word(pat, pos, w);
+  if (mode7 == 1 || mode7 == 3) out |= place_word(pat, pos + 16, w);
+  if (mode7 == 2 || mode7 == 3 || mode7 == 6) out |= place_word(pat, pos + 32, w);
+  if (mode7 == 4 || mode7 == 6) out |= place_word(pat, pos + 64, w);
+  return out;
 }
 
-__device__ void bar_words(uint32_t* w, bool on, uint32_t size_bits, int pos) {
-#pragma unroll
-  for (int k = 0; k < 5; ++k) w[k] = 0;
-  if (on) {
-    const uint32_t width = 1u << (size_bits & 3u);
-    place_bits(w, (1u << width) - 1u, pos);
-  }
+__device__ __forceinline__ uint32_t bar_word(bool on, uint32_t size_bits,
+                                             int pos, int w) {
+  if (!on) return 0u;
+  const uint32_t width = 1u << (size_bits & 3u);
+  return place_word((1u << width) - 1u, pos, w);
 }
 
-__device__ __forceinline__ uint32_t hit(const uint32_t* u, const uint32_t* v) {
-  return ((u[0] & v[0]) | (u[1] & v[1]) | (u[2] & v[2]) | (u[3] & v[3]) |
-          (u[4] & v[4])) != 0u;
-}
-
-// Line-record columns (tia.R_*).
-enum Rec {
-  R_PF0, R_PF1, R_PF2, R_COLUPF, R_COLUBK, R_CTRLPF, R_COLUP0, R_COLUP1,
-  R_GRP0, R_GRP1, R_POSP0, R_POSP1, R_NUSIZ0, R_NUSIZ1, R_ENAM0, R_ENAM1,
-  R_ENABL, R_POSM0, R_POSM1, R_POSBL, R_REFP0, R_REFP1, R_RESMP0, R_RESMP1
+// What the collision test reads of one line record.
+struct Line {
+  uint32_t pf0, pf1, pf2, ctrlpf, grp0, grp1, nusiz0, nusiz1, enam0, enam1,
+      enabl, refp0, refp1, resmp0, resmp1;
+  int posp0, posp1, posm0, posm1, posbl;
 };
 
-// [8] collision-latch bits of one line record (machine_kernel._collisions).
-__device__ void collisions(const int* rec, uint32_t* out) {
-  uint32_t pf[5], bl[5], p0[5], p1[5], m0[5], m1[5];
-  pf_words(pf, rec[R_PF0], rec[R_PF1], rec[R_PF2], rec[R_CTRLPF]);
-  bar_words(bl, (rec[R_ENABL] & 2) != 0, (rec[R_CTRLPF] >> 4) & 3,
-            rec[R_POSBL]);
-  player_words(p0, rec[R_GRP0], rec[R_POSP0], rec[R_NUSIZ0], rec[R_REFP0]);
-  player_words(p1, rec[R_GRP1], rec[R_POSP1], rec[R_NUSIZ1], rec[R_REFP1]);
-  bar_words(m0, (rec[R_ENAM0] & 2) != 0 && (rec[R_RESMP0] & 2) == 0,
-            (rec[R_NUSIZ0] >> 4) & 3, rec[R_POSM0]);
-  bar_words(m1, (rec[R_ENAM1] & 2) != 0 && (rec[R_RESMP1] & 2) == 0,
-            (rec[R_NUSIZ1] >> 4) & 3, rec[R_POSM1]);
-  out[0] = (hit(m0, p1) << 7) | (hit(m0, p0) << 6);
-  out[1] = (hit(m1, p0) << 7) | (hit(m1, p1) << 6);
-  out[2] = (hit(p0, pf) << 7) | (hit(p0, bl) << 6);
-  out[3] = (hit(p1, pf) << 7) | (hit(p1, bl) << 6);
-  out[4] = (hit(m0, pf) << 7) | (hit(m0, bl) << 6);
-  out[5] = (hit(m1, pf) << 7) | (hit(m1, bl) << 6);
-  out[6] = hit(bl, pf) << 7;
-  out[7] = (hit(p0, p1) << 7) | (hit(m0, m1) << 6);
+// Overlap bits of word w: latch k's bit 7 at bit 2k and bit 6 at 2k + 1,
+// in the TIA read map's order: CXM0P(M0·P1, M0·P0) CXM1P(M1·P0, M1·P1)
+// CXP0FB(P0·PF, P0·BL) CXP1FB(P1·PF, P1·BL) CXM0FB(M0·PF, M0·BL)
+// CXM1FB(M1·PF, M1·BL) CXBLPF(BL·PF) CXPPMM(P0·P1, M0·M1).
+__device__ __forceinline__ uint32_t pair_bits(const Line& r, int w) {
+  const uint32_t pf = pf_word(r.pf0, r.pf1, r.pf2, r.ctrlpf, w);
+  const uint32_t bl = bar_word((r.enabl & 2u) != 0, (r.ctrlpf >> 4) & 3u,
+                               r.posbl, w);
+  const uint32_t p0 = player_word(r.grp0, r.posp0, r.nusiz0, r.refp0, w);
+  const uint32_t p1 = player_word(r.grp1, r.posp1, r.nusiz1, r.refp1, w);
+  const uint32_t m0 = bar_word((r.enam0 & 2u) != 0 && (r.resmp0 & 2u) == 0,
+                               (r.nusiz0 >> 4) & 3u, r.posm0, w);
+  const uint32_t m1 = bar_word((r.enam1 & 2u) != 0 && (r.resmp1 & 2u) == 0,
+                               (r.nusiz1 >> 4) & 3u, r.posm1, w);
+  auto hit = [](uint32_t u, uint32_t v) { return (u & v) != 0u ? 1u : 0u; };
+  return (hit(m0, p1) << 0) | (hit(m0, p0) << 1) | (hit(m1, p0) << 2) |
+         (hit(m1, p1) << 3) | (hit(p0, pf) << 4) | (hit(p0, bl) << 5) |
+         (hit(p1, pf) << 6) | (hit(p1, bl) << 7) | (hit(m0, pf) << 8) |
+         (hit(m0, bl) << 9) | (hit(m1, pf) << 10) | (hit(m1, bl) << 11) |
+         (hit(bl, pf) << 12) | (hit(p0, p1) << 14) | (hit(m0, m1) << 15);
+}
+
+// Latch k's bits of the OR of every word's pair bits.
+__device__ __forceinline__ uint32_t latch(uint32_t bits, int k) {
+  return (((bits >> (2 * k)) & 1u) << 7) | (((bits >> (2 * k + 1)) & 1u) << 6);
 }
 
 // ---------------------------------------------------------------------------
-// One machine
+// One machine, run by the kLanes lanes of its group
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ int mod160(int v) {
@@ -192,111 +250,266 @@ __device__ __forceinline__ int mod160(int v) {
   return v < 0 ? v + 160 : v;
 }
 
+template <int kMpw, bool kSharedFetch>
 struct Machine {
+  using G = Geometry<kMpw>;
+
   // Registers.
   uint32_t a, x, y, sp, pc, p, bank, cycles, swcha, inpt4;
   int waddr, scanline, line_cycles, grp0_old, grp1_old, enabl_old, wrapped;
-  int pos[5];  // P0 P1 M0 M1 BL
-  // This machine's column of the block's shared byte files ([addr][lane]).
-  uint8_t* ram;
-  uint8_t* tia;
-  uint8_t* cx;
-  // The cart and its decode table, shared by the block.
-  const uint8_t* rom;
-  const uint32_t* decode;
+  int pos[5];      // P0 P1 M0 M1 BL; indexed by constants only
+  int center[2];   // RESMP0/1: missile = player + this while set, else -1
+  uint32_t vsync_before;  // VSYNC before this instruction wrote it
+  uint32_t instructions;
+  // Byte i of this machine's files is files[i * kMachines].
+  uint8_t* files;
+  const uint2* table;      // fetch words, shared or global
+  const uint32_t* decode;  // shared: mode | op << 8 | size << 16 | cyc << 24
+  uint32_t bank_words;     // kBankWords for banked carts, else 0
   int nbanks;
+  int sub;                 // lane within the group
+  unsigned mask;           // the group's lanes
 
-  __device__ uint8_t& ram_at(uint32_t i) { return ram[i * kThreads]; }
-  __device__ uint8_t& tia_at(uint32_t i) { return tia[i * kThreads]; }
-  __device__ uint8_t& cx_at(uint32_t i) { return cx[i * kThreads]; }
+  __device__ __forceinline__ uint8_t& file(uint32_t i) {
+    return files[i * G::kMachines];
+  }
 
-  __device__ uint32_t rom_base() const {
-    return nbanks > 1 ? bank * 4096u : 0u;
+  __device__ __forceinline__ uint2 word(uint32_t off) const {
+    if constexpr (kSharedFetch) {
+      return table[off];
+    } else {
+      return __ldg(table + off);
+    }
+  }
+
+  __device__ __forceinline__ uint32_t rom(uint32_t off) const {
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(table + off);
+    if constexpr (kSharedFetch) {
+      return *b;
+    } else {
+      return __ldg(b);
+    }
+  }
+
+  __device__ __forceinline__ uint32_t rom_base() const {
+    return bank * bank_words;
   }
 
   // Full bus read (machine_kernel._read).
-  __device__ uint32_t read(uint32_t addr) {
-    const uint32_t a = addr & 0x1FFFu;
-    if (a >= 0x1000u) return rom[rom_base() + (a & 0xFFFu)];
-    if ((a & 0x200u) == 0) {
-      if (a & 0x80u) return ram_at(a & 0x7Fu);
-      const uint32_t idx = a & 0xFu;  // TIA read map
-      if (idx < 8) return cx_at(idx);
+  __device__ __forceinline__ uint32_t read(uint32_t addr) {
+    const uint32_t a13 = addr & 0x1FFFu;
+    if (a13 >= 0x1000u) return rom(rom_base() + (a13 & 0xFFFu));
+    if ((a13 & 0x200u) == 0) {
+      if (a13 & 0x80u) return file(kRam + (a13 & 0x7Fu));
+      const uint32_t idx = a13 & 0xFu;  // TIA read map
+      if (idx < 8) return file(kCx + idx);
       if (idx == 0xC) return inpt4 & 0xFFu;
       if (idx == 0xD) return 0x80u;
       return 0;
     }
-    return a == 0x280u ? (swcha & 0xFFu) : 0u;
+    return a13 == 0x280u ? (swcha & 0xFFu) : 0u;
   }
 
   // Bus write: RAM, or a TIA register below $40 (recorded in waddr).
-  __device__ void write(uint32_t addr, uint32_t value) {
-    const uint32_t a = addr & 0x1FFFu;
-    if (a < 0x1000u && (a & 0x200u) == 0 && (a & 0x80u)) {
-      ram_at(a & 0x7Fu) = static_cast<uint8_t>(value);
-    } else if (a < 0x40u) {
-      tia_at(a) = static_cast<uint8_t>(value);
-      waddr = static_cast<int>(a);
+  __device__ __forceinline__ void write(uint32_t addr, uint32_t value) {
+    const uint32_t a13 = addr & 0x1FFFu;
+    if (a13 < 0x1000u && (a13 & 0x200u) == 0 && (a13 & 0x80u)) {
+      file(kRam + (a13 & 0x7Fu)) = static_cast<uint8_t>(value);
+    } else if (a13 < 0x40u) {
+      if (a13 == 0) vsync_before = file(kTia);
+      file(kTia + a13) = static_cast<uint8_t>(value);
+      waddr = static_cast<int>(a13);
     }
   }
 
   // Stack push: RAM only ($180-$1FF), nothing below.
-  __device__ void push(uint32_t s, uint32_t value) {
-    if (s & 0x80u) ram_at(s & 0x7Fu) = static_cast<uint8_t>(value);
+  __device__ __forceinline__ void push(uint32_t s, uint32_t value) {
+    if (s & 0x80u) file(kRam + (s & 0x7Fu)) = static_cast<uint8_t>(value);
   }
 
-  __device__ uint32_t zn(uint32_t flags, uint32_t v) {
+  __device__ __forceinline__ uint32_t zn(uint32_t flags, uint32_t v) {
     v &= 0xFFu;
     return (flags & ~(F_Z | F_N)) | (v == 0 ? F_Z : 0u) | (v & F_N);
   }
 
-  __device__ void step();
-  __device__ void beam(int wrote, uint32_t pre_vsync);
-  __device__ void record(int* rec);
+  // The group's lanes clear ``count`` bytes from ``base`` together.
+  __device__ __forceinline__ void clear(uint32_t base, int count) {
+    for (int i = sub; i < count; i += G::kLanes) file(base + i) = 0;
+    __syncwarp(mask);
+  }
+
+  __device__ __forceinline__ void refresh_centers() {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const uint32_t mode7 = file(kTia + 0x04 + m) & 7u;
+      const int scale = mode7 == 5 ? 2 : mode7 == 7 ? 4 : 1;
+      center[m] = (file(kTia + 0x28 + m) & 2u) ? 4 * scale : -1;
+    }
+  }
+
+  __device__ __forceinline__ static int motion(uint32_t hm) {
+    const int nib = static_cast<int>((hm >> 4) & 0xFu);
+    return nib >= 8 ? nib - 16 : nib;
+  }
+
+  // HMOVE: every object moves by the signed high nibble of HMP0..HMBL.
+  __device__ __forceinline__ void hmove() {
+    if constexpr (G::kLanes >= 5) {
+      const int mine = sub < 5 ? motion(file(kTia + 0x20 + sub)) : 0;
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        pos[i] = mod160(pos[i] - __shfl_sync(mask, mine, i, G::kLanes));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        pos[i] = mod160(pos[i] - motion(file(kTia + 0x20 + i)));
+      }
+    }
+  }
+
+  // TIA beam bookkeeping after a write to TIA register ``wrote``
+  // (machine_kernel.step_batched's tail, tia._instr).
+  __device__ __forceinline__ void beam(int wrote) {
+    switch (wrote) {
+      case 0x00:
+        if ((vsync_before & 2u) && !(file(kTia) & 2u)) {
+          if (scanline > 3) wrapped = 1;
+          scanline = 3;
+        }
+        break;
+      case 0x02: line_cycles = kCyclesPerLine; break;
+      case 0x04: case 0x05: case 0x28: case 0x29: refresh_centers(); break;
+      case 0x10: case 0x11: case 0x12: case 0x13: case 0x14: {
+        const int beam_x = min(max(line_cycles * 3 - 68, 0), 159);
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          if (wrote == 0x10 + k) pos[k] = beam_x;
+        }
+        break;
+      }
+      case 0x1B: grp1_old = file(kTia + 0x1C); break;
+      case 0x1C:
+        grp0_old = file(kTia + 0x1B);
+        enabl_old = file(kTia + 0x1F);
+        break;
+      case 0x2A: hmove(); break;
+      case 0x2B: clear(kTia + 0x20, 5); break;
+      case 0x2C: clear(kCx, 8); break;
+      default: break;
+    }
+  }
+
+  __device__ __forceinline__ void step();
+
+  // Record column k of the closing line (VDEL resolved).
+  __device__ __forceinline__ int column(int k) {
+    const uint64_t regs = k < 8 ? kRecReg0 : k < 16 ? kRecReg1 : kRecReg2;
+    int v = file(kTia + ((regs >> (8 * (k & 7))) & 0xFFu));
+    const int vdel = k == R_GRP0 ? 0x25 : k == R_GRP1 ? 0x26 : 0x27;
+    const int old = k == R_GRP0 ? grp0_old : k == R_GRP1 ? grp1_old : enabl_old;
+    if ((k == R_GRP0 || k == R_GRP1 || k == R_ENABL) && (file(kTia + vdel) & 1)) {
+      v = old;
+    }
+    return k == R_POSP0   ? pos[0]
+           : k == R_POSP1 ? pos[1]
+           : k == R_POSM0 ? pos[2]
+           : k == R_POSM1 ? pos[3]
+           : k == R_POSBL ? pos[4]
+                          : v;
+  }
+
+  __device__ __forceinline__ Line line() {
+    Line r;
+    r.pf0 = file(kTia + 0x0D);
+    r.pf1 = file(kTia + 0x0E);
+    r.pf2 = file(kTia + 0x0F);
+    r.ctrlpf = file(kTia + 0x0A);
+    r.grp0 = (file(kTia + 0x25) & 1) ? grp0_old : file(kTia + 0x1B);
+    r.grp1 = (file(kTia + 0x26) & 1) ? grp1_old : file(kTia + 0x1C);
+    r.nusiz0 = file(kTia + 0x04);
+    r.nusiz1 = file(kTia + 0x05);
+    r.enam0 = file(kTia + 0x1D);
+    r.enam1 = file(kTia + 0x1E);
+    r.enabl = (file(kTia + 0x27) & 1) ? enabl_old : file(kTia + 0x1F);
+    r.refp0 = file(kTia + 0x0B);
+    r.refp1 = file(kTia + 0x0C);
+    r.resmp0 = file(kTia + 0x28);
+    r.resmp1 = file(kTia + 0x29);
+    r.posp0 = pos[0];
+    r.posp1 = pos[1];
+    r.posm0 = pos[2];
+    r.posm1 = pos[3];
+    r.posbl = pos[4];
+    return r;
+  }
+
+  // A visible line closes: its record row and collision latches.
+  __device__ __forceinline__ void close_visible(int* row) {
+    const Line r = line();
+    uint32_t bits = 0;
+    for (int w = sub; w < 5; w += G::kLanes) bits |= pair_bits(r, w);
+    bits = __reduce_or_sync(mask, bits);
+    for (int k = sub; k < kNReg; k += G::kLanes) row[k] = column(k);
+    for (int k = sub; k < 8; k += G::kLanes) file(kCx + k) |= latch(bits, k);
+    __syncwarp(mask);
+  }
+
+  __device__ __forceinline__ void run(int* lines) {
+    scanline = 0;
+    wrapped = 0;
+    for (int slot = 0; slot < kSlots; ++slot) {
+      for (int count = 0; line_cycles < kCyclesPerLine && count < kBudget;
+           ++count) {
+        step();
+      }
+      const int vis = scanline - kFirstVisible;
+      if (vis >= 0 && vis < kVisible) close_visible(lines + vis * kNReg);
+      scanline += 1;
+      line_cycles -= kCyclesPerLine;
+      if (wrapped || scanline >= kSlots) break;
+    }
+  }
 };
 
-__device__ void Machine::step() {
+template <int kMpw, bool kSharedFetch>
+__device__ __forceinline__ void Machine<kMpw, kSharedFetch>::step() {
   waddr = -1;
-  const uint32_t pre_vsync = tia_at(0);
-  uint32_t opc, b1, b2;
+  ++instructions;
   // The batched JAX step's fetch rule: inside a 4K window (and not in its
-  // last two bytes) read the cart at pc & 0xFFF, else the full bus.
-  if (pc >= 0x1000u && (pc & 0xFFFu) < 0xFFDu) {
-    const uint8_t* at = rom + rom_base() + (pc & 0xFFFu);
-    opc = at[0];
-    b1 = at[1];
-    b2 = at[2];
+  // last two bytes) the fetch word at pc & 0xFFF of the bank, else the bus.
+  uint32_t w0, w1;
+  if (__builtin_expect(pc >= 0x1000u && (pc & 0xFFFu) < 0xFFDu, 1)) {
+    const uint2 wd = word(rom_base() + (pc & 0xFFFu));
+    w0 = wd.x;
+    w1 = wd.y;
   } else {
-    opc = read(pc);
-    b1 = read(pc + 1);
-    b2 = read(pc + 2);
+    const uint32_t opc = read(pc), c1 = read(pc + 1), c2 = read(pc + 2);
+    const uint32_t dec = decode[opc];
+    w0 = opc | (c1 << 8) | (c2 << 16) | (dec << 24);
+    w1 = dec >> 8;
   }
-  const uint32_t dec = decode[opc];
-  const uint32_t mode = dec & 0xFFu, op = (dec >> 8) & 0xFFu,
-                 size = (dec >> 16) & 0xFFu, cyc = dec >> 24;
+  const uint32_t b1 = (w0 >> 8) & 0xFFu, b2 = (w0 >> 16) & 0xFFu,
+                 mode = w0 >> 24;
+  const uint32_t op = w1 & 0xFFu, size = (w1 >> 8) & 0xFFu,
+                 cyc = (w1 >> 16) & 0xFFu;
 
+  const uint32_t mbit = 1u << mode;
   const uint32_t abs_a = b1 | (b2 << 8);
-  uint32_t addr = 0;
-  switch (mode) {
-    case ZP: addr = b1; break;
-    case ZPX: addr = (b1 + x) & 0xFFu; break;
-    case ZPY: addr = (b1 + y) & 0xFFu; break;
-    case ABS: case IND: addr = abs_a; break;
-    case ABX: addr = (abs_a + x) & 0xFFFFu; break;
-    case ABY: addr = (abs_a + y) & 0xFFFFu; break;
-    case IZX: {
-      const uint32_t ptr = (b1 + x) & 0xFFu;
-      addr = read(ptr) | (read((ptr + 1) & 0xFFu) << 8);
-      break;
-    }
-    case IZY:
-      addr = ((read(b1) | (read((b1 + 1) & 0xFFu) << 8)) + y) & 0xFFFFu;
-      break;
-    default: break;
+  const uint32_t index = (mbit & kIndexX) ? x : (mbit & kIndexY) ? y : 0u;
+  uint32_t addr = (mbit & kZeroPage) ? ((b1 + index) & 0xFFu)
+                                     : ((abs_a + index) & 0xFFFFu);
+  const bool touches = (mbit & kMemModes) != 0;
+  if (!touches) addr = 0;
+  if (__builtin_expect(mode == IZX, 0)) {
+    const uint32_t ptr = (b1 + x) & 0xFFu;
+    addr = read(ptr) | (read((ptr + 1) & 0xFFu) << 8);
+  } else if (__builtin_expect(mode == IZY, 0)) {
+    addr = ((read(b1) | (read((b1 + 1) & 0xFFu) << 8)) + y) & 0xFFFFu;
   }
-  const bool touches = mode != IMP && mode != ACC && mode != IMM && mode != REL;
-  uint32_t mem_v = touches ? read(addr) : 0u;
-  if (mode == IND) {  // JMP (ind): the vector's high byte wraps in its page
+  const uint32_t mem_v = touches ? read(addr) : 0u;
+  if (__builtin_expect(mode == IND, 0)) {
+    // JMP (ind): the vector's high byte wraps in its page.
     const uint32_t am = abs_a & 0x1FFFu;
     const uint32_t wrap = (am & 0xFF00u) | ((am + 1) & 0xFFu);
     addr = read(am) | (read(wrap) << 8);
@@ -429,19 +642,19 @@ __device__ void Machine::step() {
     }
     case O_BCC: case O_BCS: case O_BEQ: case O_BMI: case O_BNE: case O_BPL:
     case O_BVC: case O_BVS: {
-      uint32_t flag;
+      uint32_t f;
       bool want;
       switch (op) {
-        case O_BCC: flag = F_C; want = false; break;
-        case O_BCS: flag = F_C; want = true; break;
-        case O_BEQ: flag = F_Z; want = true; break;
-        case O_BNE: flag = F_Z; want = false; break;
-        case O_BMI: flag = F_N; want = true; break;
-        case O_BPL: flag = F_N; want = false; break;
-        case O_BVC: flag = F_V; want = false; break;
-        default: flag = F_V; want = true; break;
+        case O_BCC: f = F_C; want = false; break;
+        case O_BCS: f = F_C; want = true; break;
+        case O_BEQ: f = F_Z; want = true; break;
+        case O_BNE: f = F_Z; want = false; break;
+        case O_BMI: f = F_N; want = true; break;
+        case O_BPL: f = F_N; want = false; break;
+        case O_BVC: f = F_V; want = false; break;
+        default: f = F_V; want = true; break;
       }
-      if (((p & flag) != 0) == want) {
+      if (((p & f) != 0) == want) {
         // rel = b1 as a signed byte
         next_pc = (next_pc + b1 + (b1 < 0x80u ? 0u : 0xFF00u)) & 0xFFFFu;
       }
@@ -477,159 +690,148 @@ __device__ void Machine::step() {
   pc = next_pc;
   cycles += cyc;
   line_cycles += static_cast<int>(cyc);
-  if (waddr >= 0) beam(waddr, pre_vsync);
+  if (waddr >= 0) beam(waddr);
   // RESMP: while set, the missile tracks its player's center.
-  for (int m = 0; m < 2; ++m) {
-    if (tia_at(0x28 + m) & 2) {
-      const uint32_t mode7 = tia_at(0x04 + m) & 7u;
-      const int scale = mode7 == 5 ? 2 : mode7 == 7 ? 4 : 1;
-      pos[2 + m] = mod160(pos[m] + 4 * scale);
-    }
-  }
+  if (center[0] >= 0) pos[2] = mod160(pos[0] + center[0]);
+  if (center[1] >= 0) pos[3] = mod160(pos[1] + center[1]);
 }
 
-// TIA beam bookkeeping after a write to TIA register ``wrote``
-// (machine_kernel.step_batched's tail, tia._instr).
-__device__ void Machine::beam(int wrote, uint32_t pre_vsync) {
-  if (wrote == 0x1B) grp1_old = tia_at(0x1C);
-  if (wrote == 0x1C) {
-    grp0_old = tia_at(0x1B);
-    enabl_old = tia_at(0x1F);
-  }
-  if (wrote >= 0x10 && wrote <= 0x14) {
-    const int beam_x = min(max(line_cycles * 3 - 68, 0), 159);
-    pos[wrote - 0x10] = beam_x;
-  }
-  if (wrote == 0x2A) {  // HMOVE: signed high nibbles of HMP0..HMBL
-    for (int i = 0; i < 5; ++i) {
-      const int nib = (tia_at(0x20 + i) >> 4) & 0xF;
-      pos[i] = mod160(pos[i] - (nib >= 8 ? nib - 16 : nib));
-    }
-  }
-  if (wrote == 0x2B) {
-    for (int i = 0x20; i < 0x25; ++i) tia_at(i) = 0;
-  }
-  if (wrote == 0x02) line_cycles = kCyclesPerLine;
-  if (wrote == 0x2C) {
-    for (int i = 0; i < 8; ++i) cx_at(i) = 0;
-  }
-  if (wrote == 0x00 && (pre_vsync & 2u) && !(tia_at(0) & 2u)) {
-    if (scanline > 3) wrapped = 1;
-    scanline = 3;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ void Machine::record(int* rec) {
-  rec[R_PF0] = tia_at(0x0D);
-  rec[R_PF1] = tia_at(0x0E);
-  rec[R_PF2] = tia_at(0x0F);
-  rec[R_COLUPF] = tia_at(0x08);
-  rec[R_COLUBK] = tia_at(0x09);
-  rec[R_CTRLPF] = tia_at(0x0A);
-  rec[R_COLUP0] = tia_at(0x06);
-  rec[R_COLUP1] = tia_at(0x07);
-  rec[R_GRP0] = (tia_at(0x25) & 1) ? grp0_old : tia_at(0x1B);
-  rec[R_GRP1] = (tia_at(0x26) & 1) ? grp1_old : tia_at(0x1C);
-  rec[R_POSP0] = pos[0];
-  rec[R_POSP1] = pos[1];
-  rec[R_NUSIZ0] = tia_at(0x04);
-  rec[R_NUSIZ1] = tia_at(0x05);
-  rec[R_ENAM0] = tia_at(0x1D);
-  rec[R_ENAM1] = tia_at(0x1E);
-  rec[R_ENABL] = (tia_at(0x27) & 1) ? enabl_old : tia_at(0x1F);
-  rec[R_POSM0] = pos[2];
-  rec[R_POSM1] = pos[3];
-  rec[R_POSBL] = pos[4];
-  rec[R_REFP0] = tia_at(0x0B);
-  rec[R_REFP1] = tia_at(0x0C);
-  rec[R_RESMP0] = tia_at(0x28);
-  rec[R_RESMP1] = tia_at(0x29);
-}
-
-__global__ void __launch_bounds__(kThreads)
-machine_frame_kernel(const uint8_t* __restrict__ rom_g, int rom_size,
+template <int kMpw, bool kSharedFetch>
+__global__ void __launch_bounds__(Geometry<kMpw>::kThreads)
+machine_frame_kernel(const uint2* __restrict__ fetch_g, int nbanks,
                      const int* __restrict__ decode_g, int* __restrict__ scal,
                      int* __restrict__ ram_g, int* __restrict__ tia_g,
-                     int* __restrict__ cx_g, int* __restrict__ lines, int n) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* decode = smem;                                   // [256]
-  uint8_t* rom = reinterpret_cast<uint8_t*>(smem + 256);     // [rom_size]
-  uint8_t* files = rom + rom_size;                           // [200][kThreads]
-  const int lane = threadIdx.x;
-  const int i = blockIdx.x * kThreads + lane;
+                     int* __restrict__ cx_g, int* __restrict__ lines,
+                     int* __restrict__ counts, int n) {
+  using G = Geometry<kMpw>;
+  constexpr int M = G::kMachines;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t table_ready;
+  const int table_bytes = kSharedFetch ? nbanks * kBankWords * 8 : 0;
+  uint32_t* decode = reinterpret_cast<uint32_t*>(smem + table_bytes);
+  uint8_t* files = smem + table_bytes + 256 * 4;           // [kFiles][M]
+  int* stage = reinterpret_cast<int*>(files + kFiles * M);  // [NS][M]
+  const int tid = threadIdx.x;
+  const int first = blockIdx.x * M;
+  const int here = min(M, n - first);
 
-  for (int k = lane; k < 256; k += kThreads) {
+  // Start the fetch table on its way, one bulk copy per 4K bank.
+  if constexpr (kSharedFetch) {
+    if (tid == 0) {
+      const uint32_t bar = smem_u32(&table_ready);
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(bar), "r"(table_bytes) : "memory");
+      for (int b = 0; b < nbanks; ++b) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];"
+            ::"r"(smem_u32(smem + b * kBankWords * 8)),
+            "l"(fetch_g + b * kBankWords), "r"(kBankWords * 8), "r"(bar)
+            : "memory");
+      }
+    }
+  }
+  // Meanwhile: the decode table and this block's machines, coalesced.
+  for (int k = tid; k < 256; k += G::kThreads) {
     const int* d = decode_g + 4 * k;  // mode, op, size, cycles
     decode[k] = static_cast<uint32_t>(d[0]) |
                 (static_cast<uint32_t>(d[1]) << 8) |
                 (static_cast<uint32_t>(d[2]) << 16) |
                 (static_cast<uint32_t>(d[3]) << 24);
   }
-  const uint4* rom_v = reinterpret_cast<const uint4*>(rom_g);
-  uint4* rom_s = reinterpret_cast<uint4*>(rom);
-  for (int k = lane; k < rom_size / 16; k += kThreads) rom_s[k] = rom_v[k];
-
-  Machine m;
-  m.ram = files + lane;
-  m.tia = files + 128 * kThreads + lane;
-  m.cx = files + 192 * kThreads + lane;
-  m.rom = rom;
-  m.decode = decode;
-  m.nbanks = rom_size / 4096;
-  const bool live = i < n;
-  if (live) {
-    for (int k = 0; k < 128; ++k) m.ram_at(k) = static_cast<uint8_t>(ram_g[i * 128 + k]);
-    for (int k = 0; k < 64; ++k) m.tia_at(k) = static_cast<uint8_t>(tia_g[i * 64 + k]);
-    for (int k = 0; k < 8; ++k) m.cx_at(k) = static_cast<uint8_t>(cx_g[i * 8 + k]);
+  for (int i = tid; i < here * 128; i += G::kThreads) {
+    files[(kRam + i % 128) * M + i / 128] =
+        static_cast<uint8_t>(ram_g[first * 128 + i]);
+  }
+  for (int i = tid; i < here * 64; i += G::kThreads) {
+    files[(kTia + i % 64) * M + i / 64] =
+        static_cast<uint8_t>(tia_g[first * 64 + i]);
+  }
+  for (int i = tid; i < here * 8; i += G::kThreads) {
+    files[(kCx + i % 8) * M + i / 8] = static_cast<uint8_t>(cx_g[first * 8 + i]);
+  }
+  for (int i = tid; i < NS * here; i += G::kThreads) {
+    const int k = i / here, m = i % here;
+    stage[k * M + m] = scal[k * n + first + m];
   }
   __syncthreads();
-  if (!live) return;
-
-  auto s = [&](int k) -> int& { return scal[k * n + i]; };
-  m.a = s(S_A); m.x = s(S_X); m.y = s(S_Y); m.sp = s(S_SP); m.pc = s(S_PC);
-  m.p = s(S_P); m.bank = s(S_BANK);
-  m.cycles = static_cast<uint32_t>(s(S_CYCLES));
-  m.waddr = s(S_WADDR); m.swcha = s(S_SWCHA); m.inpt4 = s(S_INPT4);
-  m.line_cycles = s(S_LINE_CYCLES);
-  for (int k = 0; k < 5; ++k) m.pos[k] = s(S_POSP0 + k);
-  m.grp0_old = s(S_GRP0_OLD); m.grp1_old = s(S_GRP1_OLD);
-  m.enabl_old = s(S_ENABL_OLD);
-  m.scanline = 0;
-  m.wrapped = 0;
-
-  int* my_lines = lines + static_cast<size_t>(i) * kVisible * kNReg;
-  for (int slot = 0; slot < kSlots; ++slot) {
-    for (int count = 0; m.line_cycles < kCyclesPerLine && count < kBudget;
-         ++count) {
-      m.step();
+  if constexpr (kSharedFetch) {
+    const uint32_t bar = smem_u32(&table_ready);
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done) : "r"(bar) : "memory");
     }
-    const int vis = m.scanline - kFirstVisible;
-    if (vis >= 0 && vis < kVisible) {
-      int rec[kNReg];
-      m.record(rec);
-      uint32_t hits[8];
-      collisions(rec, hits);
-      for (int k = 0; k < 8; ++k) m.cx_at(k) |= static_cast<uint8_t>(hits[k]);
-      int* row = my_lines + vis * kNReg;
-      for (int k = 0; k < kNReg; ++k) row[k] = rec[k];
-    }
-    m.scanline += 1;
-    m.line_cycles -= kCyclesPerLine;
-    if (m.wrapped || m.scanline >= kSlots) break;
   }
 
-  s(S_A) = m.a; s(S_X) = m.x; s(S_Y) = m.y; s(S_SP) = m.sp; s(S_PC) = m.pc;
-  s(S_P) = m.p; s(S_BANK) = m.bank;
-  s(S_CYCLES) = static_cast<int>(m.cycles);
-  s(S_WADDR) = m.waddr;
-  s(S_SCANLINE) = m.scanline; s(S_LINE_CYCLES) = m.line_cycles;
-  for (int k = 0; k < 5; ++k) s(S_POSP0 + k) = m.pos[k];
-  s(S_GRP0_OLD) = m.grp0_old; s(S_GRP1_OLD) = m.grp1_old;
-  s(S_ENABL_OLD) = m.enabl_old;
-  s(S_WRAPPED) = m.wrapped;
-  for (int k = 0; k < 128; ++k) ram_g[i * 128 + k] = m.ram_at(k);
-  for (int k = 0; k < 64; ++k) tia_g[i * 64 + k] = m.tia_at(k);
-  for (int k = 0; k < 8; ++k) cx_g[i * 8 + k] = m.cx_at(k);
+  const int lane = tid & 31;
+  const int m = (tid >> 5) * kMpw + lane / G::kLanes;
+  if (m < here) {
+    Machine<kMpw, kSharedFetch> mc;
+    mc.sub = lane % G::kLanes;
+    mc.mask = G::kLanes == 32
+                  ? 0xFFFFFFFFu
+                  : ((1u << G::kLanes) - 1u) << (lane - mc.sub);
+    mc.files = files + m;
+    mc.table = kSharedFetch ? reinterpret_cast<const uint2*>(smem) : fetch_g;
+    mc.decode = decode;
+    mc.nbanks = nbanks;
+    mc.bank_words = nbanks > 1 ? kBankWords : 0;
+    auto s = [&](int k) -> int& { return stage[k * M + m]; };
+    mc.a = s(S_A); mc.x = s(S_X); mc.y = s(S_Y); mc.sp = s(S_SP);
+    mc.pc = s(S_PC); mc.p = s(S_P); mc.bank = s(S_BANK);
+    mc.cycles = static_cast<uint32_t>(s(S_CYCLES));
+    mc.waddr = s(S_WADDR); mc.swcha = s(S_SWCHA); mc.inpt4 = s(S_INPT4);
+    mc.line_cycles = s(S_LINE_CYCLES);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) mc.pos[k] = s(S_POSP0 + k);
+    mc.grp0_old = s(S_GRP0_OLD); mc.grp1_old = s(S_GRP1_OLD);
+    mc.enabl_old = s(S_ENABL_OLD);
+    mc.vsync_before = 0;
+    mc.instructions = 0;
+    mc.refresh_centers();
+    __syncwarp(mc.mask);  // every lane has read the stage before lane 0 writes it
+
+    mc.run(lines + static_cast<size_t>(first + m) * kVisible * kNReg);
+
+    if (mc.sub == 0) {
+      s(S_A) = mc.a; s(S_X) = mc.x; s(S_Y) = mc.y; s(S_SP) = mc.sp;
+      s(S_PC) = mc.pc; s(S_P) = mc.p; s(S_BANK) = mc.bank;
+      s(S_CYCLES) = static_cast<int>(mc.cycles);
+      s(S_WADDR) = mc.waddr;
+      s(S_SCANLINE) = mc.scanline; s(S_LINE_CYCLES) = mc.line_cycles;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) s(S_POSP0 + k) = mc.pos[k];
+      s(S_GRP0_OLD) = mc.grp0_old; s(S_GRP1_OLD) = mc.grp1_old;
+      s(S_ENABL_OLD) = mc.enabl_old;
+      s(S_WRAPPED) = mc.wrapped;
+      if (counts != nullptr) counts[first + m] = static_cast<int>(mc.instructions);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < NS * here; i += G::kThreads) {
+    const int k = i / here, mm = i % here;
+    scal[k * n + first + mm] = stage[k * M + mm];
+  }
+  for (int i = tid; i < here * 128; i += G::kThreads) {
+    ram_g[first * 128 + i] = files[(kRam + i % 128) * M + i / 128];
+  }
+  for (int i = tid; i < here * 64; i += G::kThreads) {
+    tia_g[first * 64 + i] = files[(kTia + i % 64) * M + i / 64];
+  }
+  for (int i = tid; i < here * 8; i += G::kThreads) {
+    cx_g[first * 8 + i] = files[(kCx + i % 8) * M + i / 8];
+  }
 }
 
 // Test entry: the collision bits of ``n`` line records [n, 24] -> [n, 8].
@@ -637,39 +839,95 @@ __global__ void machine_collisions_kernel(const int* __restrict__ rec,
                                           int* __restrict__ out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t hits[8];
-  collisions(rec + i * kNReg, hits);
-  for (int k = 0; k < 8; ++k) out[i * 8 + k] = static_cast<int>(hits[k]);
+  const int* c = rec + i * kNReg;
+  Line r;
+  r.pf0 = c[R_PF0]; r.pf1 = c[R_PF1]; r.pf2 = c[R_PF2];
+  r.ctrlpf = c[R_CTRLPF]; r.grp0 = c[R_GRP0]; r.grp1 = c[R_GRP1];
+  r.nusiz0 = c[R_NUSIZ0]; r.nusiz1 = c[R_NUSIZ1];
+  r.enam0 = c[R_ENAM0]; r.enam1 = c[R_ENAM1]; r.enabl = c[R_ENABL];
+  r.refp0 = c[R_REFP0]; r.refp1 = c[R_REFP1];
+  r.resmp0 = c[R_RESMP0]; r.resmp1 = c[R_RESMP1];
+  r.posp0 = c[R_POSP0]; r.posp1 = c[R_POSP1]; r.posm0 = c[R_POSM0];
+  r.posm1 = c[R_POSM1]; r.posbl = c[R_POSBL];
+  uint32_t bits = 0;
+  for (int w = 0; w < 5; ++w) bits |= pair_bits(r, w);
+  for (int k = 0; k < 8; ++k) out[i * 8 + k] = static_cast<int>(latch(bits, k));
 }
 
-size_t shared_bytes(int rom_size) {
-  return 256 * sizeof(uint32_t) + rom_size + 200 * kThreads;
+// Test entry: one thread chases a pointer ring through shared memory;
+// out[0] = SM clocks over ``iters`` dependent loads, out[1] = the end.
+__global__ void smem_chase_kernel(long long* __restrict__ out, int iters) {
+  __shared__ uint32_t ring[1024];
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x) ring[i] = (i + 97) & 1023u;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  uint32_t j = 0;
+  for (int k = 0; k < 64; ++k) j = ring[j];  // warm
+  const long long t0 = clock64();
+  for (int k = 0; k < iters; k += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) j = ring[j];
+  }
+  const long long t1 = clock64();
+  out[0] = t1 - t0;
+  out[1] = j;
+}
+
+template <int kMpw, bool kSharedFetch>
+int launch(const uint2* fetch, int nbanks, const int* decode, int* scal,
+           int* ram, int* tia, int* cx, int* lines, int* counts, int n,
+           cudaStream_t stream) {
+  using G = Geometry<kMpw>;
+  const size_t smem = (kSharedFetch ? static_cast<size_t>(nbanks) * kBankWords * 8 : 0) +
+                      256 * 4 + static_cast<size_t>(kFiles + NS * 4) * G::kMachines;
+  auto kernel = machine_frame_kernel<kMpw, kSharedFetch>;
+  static size_t allowed = 48 * 1024;
+  if (smem > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  const int blocks = (n + G::kMachines - 1) / G::kMachines;
+  kernel<<<blocks, G::kThreads, smem, stream>>>(fetch, nbanks, decode, scal,
+                                                ram, tia, cx, lines, counts, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int machine_frame_launch(const uint8_t* rom, int rom_size,
+// machines_per_warp: 1, 4, 8 or 32; fetch_shared: the fetch table in
+// shared memory (1) or read through the read-only cache (0).
+extern "C" int machine_frame_launch(const void* fetch, int nbanks,
                                     const int* decode, int* scal, int* ram,
-                                    int* tia, int* cx, int* lines, int n,
-                                    void* stream) {
-  const size_t smem = shared_bytes(rom_size);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        machine_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (n + kThreads - 1) / kThreads;
-  machine_frame_kernel<<<blocks, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      rom, rom_size, decode, scal, ram, tia, cx, lines, n);
-  return static_cast<int>(cudaGetLastError());
+                                    int* tia, int* cx, int* lines, int* counts,
+                                    int n, int machines_per_warp,
+                                    int fetch_shared, void* stream) {
+  const uint2* f = static_cast<const uint2*>(fetch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K2_LAUNCH(MPW, SH)                                                  \
+  if (machines_per_warp == MPW && (fetch_shared != 0) == SH)                \
+    return launch<MPW, SH>(f, nbanks, decode, scal, ram, tia, cx, lines,    \
+                           counts, n, s);
+  K2_LAUNCH(1, true) K2_LAUNCH(1, false)
+  K2_LAUNCH(4, true) K2_LAUNCH(4, false)
+  K2_LAUNCH(8, true) K2_LAUNCH(8, false)
+  K2_LAUNCH(32, true) K2_LAUNCH(32, false)
+#undef K2_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int machine_collisions_launch(const int* rec, int* out, int n,
                                          void* stream) {
   machine_collisions_kernel<<<(n + 127) / 128, 128, 0,
                               static_cast<cudaStream_t>(stream)>>>(rec, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int machine_smem_chase_launch(long long* out, int iters,
+                                         void* stream) {
+  smem_chase_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
   return static_cast<int>(cudaGetLastError());
 }
 

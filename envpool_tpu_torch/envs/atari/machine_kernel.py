@@ -112,15 +112,17 @@ _BRANCH = {
 
 
 def build_tables(rom_np: np.ndarray, device) -> dict:
-    """Per-cart tensors: the ROM image and the decode table."""
+    """Per-cart tensors: the ROM image, the decode table, and per cartridge
+    offset the fetch row ``meta`` (plain version) and K2's fetch word."""
     rom_np = np.asarray(rom_np, np.uint8)
     n = rom_np.shape[0]
     if n not in (4096, 8192, 16384):
         raise ValueError(f"expected a 4K/8K/16K cartridge image, got {n} B")
     dev = torch.device(device)
     decode = np.stack(CPU_TABLES, 1)
-    # Plain version only: per cartridge offset, the three instruction
-    # bytes within its 4K bank and the decode of the first.
+    # Per cartridge offset, the three instruction bytes within its 4K bank
+    # and the decode of the first: the JAX meta row (b0, b1, b2, mode, op,
+    # size, cycles, 0).  K2 reads it as one little-endian 64-bit word.
     banks = rom_np.reshape(-1, 4096).astype(np.int64)
     j = np.arange(4096)
     b0 = banks[:, j]
@@ -128,10 +130,12 @@ def build_tables(rom_np: np.ndarray, device) -> dict:
         np.stack([b0, banks[:, (j + 1) & 0xFFF], banks[:, (j + 2) & 0xFFF]], -1),
         decode[b0],
     ], -1).reshape(-1, 7)
+    fetch = (meta << (8 * np.arange(7))).sum(-1)
     return {
         "rom": torch.as_tensor(rom_np, device=dev),
         "decode": torch.as_tensor(decode.astype(np.int32), device=dev),
         "meta": torch.as_tensor(meta, device=dev),
+        "fetch": torch.as_tensor(fetch, device=dev),
         "nbanks": n // 4096,
     }
 
@@ -541,6 +545,7 @@ class _Frame:
 
     def run(self) -> None:
         s = self.s
+        self.instructions = torch.zeros_like(s["pc"])
         s["scanline"] = torch.zeros_like(s["scanline"])
         s["wrapped"] = torch.zeros_like(s["wrapped"])
         self.resmp = bool((((self.tia_reg(0x28) | self.tia_reg(0x29)) & 2) != 0).any())
@@ -553,6 +558,7 @@ class _Frame:
                     break
                 self.step(act)
                 count.add_(act)
+            self.instructions.add_(count)
             # Close the line: snapshot, collision OR on visible lines, advance.
             vis = s["scanline"] - FIRST_VISIBLE
             keep = live & (vis >= 0) & (vis < VISIBLE_LINES)
@@ -584,13 +590,16 @@ class _Frame:
         return out
 
 
-def frame(g: dict, tables: dict) -> dict:
+def frame(g: dict, tables: dict, counts: torch.Tensor | None = None) -> dict:
     """Advance every row one video frame (plain version of K2).
 
     ``g`` is a machine batch in the JAX env's layout; returns a new dict
     (the input is not written).  ``tables`` comes from
-    :func:`build_tables`.
+    :func:`build_tables`.  Given ``counts`` (``[N]``), each row's number of
+    emulated instructions in the frame is written there.
     """
     f = _Frame(g, tables)
     f.run()
+    if counts is not None:
+        counts.copy_(f.instructions)
     return f.result(g)

@@ -28,7 +28,7 @@ from ..envs.atari import machine_kernel
 from ..envs.atari.machine_kernel import NS, SCALARS
 from ..envs.atari.tia import NREG, VISIBLE_LINES
 
-__all__ = ["machine_frame"]
+__all__ = ["MachineFrame", "machine_frame"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "machine_frame.cu"
@@ -37,15 +37,27 @@ _CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 # The per-machine int32 arrays and their shapes after the batch dimension.
 _FILES = {"ram": (128,), "tia": (64,), "cx": (8,), "lines": (VISIBLE_LINES, NREG)}
+# Machines per warp the kernel is compiled for.
+GEOMETRIES = (1, 4, 8, 32)
 
 
 class MachineFrame:
-    """The K2 wrapper: builds, checks, launches and counts launches."""
+    """The K2 wrapper: builds, checks, launches and counts launches.
+
+    ``machines_per_warp`` (one of :data:`GEOMETRIES`) sets how many machines
+    share a warp; ``fetch_shared`` whether the cart's fetch table is copied
+    into shared memory or read through the read-only cache.
+    """
 
     def __init__(self, source: pathlib.Path = _SOURCE,
                  build_dir: pathlib.Path = _BUILD_DIR,
-                 name: str = "envpool_tpu_torch_machine_frame") -> None:
+                 name: str = "envpool_tpu_torch_machine_frame",
+                 machines_per_warp: int = 1, fetch_shared: bool = True) -> None:
+        if machines_per_warp not in GEOMETRIES:
+            raise ValueError(f"machines_per_warp must be one of {GEOMETRIES}")
         self.launches = 0
+        self.machines_per_warp = machines_per_warp
+        self.fetch_shared = fetch_shared
         self._lib = None
         self._source, self._build_dir, self._name = source, build_dir, name
 
@@ -71,11 +83,13 @@ class MachineFrame:
             lib = ctypes.CDLL(path)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.machine_frame_launch.argtypes = (
-                [ptr, i32] + [ptr] * 6 + [i32, ptr]
+                [ptr, i32] + [ptr] * 7 + [i32, i32, i32, ptr]
             )
             lib.machine_frame_launch.restype = i32
             lib.machine_collisions_launch.argtypes = [ptr, ptr, i32, ptr]
             lib.machine_collisions_launch.restype = i32
+            lib.machine_smem_chase_launch.argtypes = [ptr, i32, ptr]
+            lib.machine_smem_chase_launch.restype = i32
             lib.machine_frame_error_string.argtypes = [i32]
             lib.machine_frame_error_string.restype = ctypes.c_char_p
             lib.machine_frame_num_scalars.restype = i32
@@ -85,7 +99,7 @@ class MachineFrame:
         return self._lib
 
     @staticmethod
-    def _check(g: dict, tables: dict) -> torch.device:
+    def _check(g: dict, tables: dict, counts) -> torch.device:
         dev = g["pc"].device
         n = g["pc"].shape[0]
         for k in SCALARS:
@@ -103,20 +117,34 @@ class MachineFrame:
                     f"machine_frame: {k} must be [{n}, {shape}] int32 on {dev}, "
                     f"got {tuple(t.shape)} {t.dtype} on {t.device}"
                 )
-        rom, dec = tables["rom"], tables["decode"]
-        if rom.dtype != torch.uint8 or rom.ndim != 1 or rom.shape[0] not in (4096, 8192, 16384):
-            raise ValueError("machine_frame: rom must be a 4K/8K/16K uint8 vector")
+        fetch, dec, nbanks = tables["fetch"], tables["decode"], tables["nbanks"]
+        if nbanks not in (1, 2, 4) or fetch.dtype != torch.int64 \
+                or tuple(fetch.shape) != (nbanks * 4096,):
+            raise ValueError("machine_frame: fetch must be [nbanks * 4096] int64 "
+                             "for 1, 2 or 4 banks")
         if dec.dtype != torch.int32 or tuple(dec.shape) != (256, 4):
             raise ValueError("machine_frame: decode must be [256, 4] int32")
-        if rom.device != dev or dec.device != dev:
+        if fetch.device != dev or dec.device != dev:
             raise ValueError("machine_frame: tables and state on different devices")
+        if counts is not None and (counts.dtype != torch.int32 or counts.device != dev
+                                   or tuple(counts.shape) != (n,)
+                                   or not counts.is_contiguous()):
+            raise ValueError(f"machine_frame: counts must be [{n}] int32 on {dev}")
         return dev
 
-    def __call__(self, g: dict, tables: dict) -> dict:
-        """A machine batch one video frame later (a new dict)."""
-        dev = self._check(g, tables)
+    def _raise(self, rc: int, what: str) -> None:
+        if rc != 0:
+            msg = self._library().machine_frame_error_string(rc).decode()
+            raise RuntimeError(f"{what} kernel launch failed: {msg}")
+
+    def __call__(self, g: dict, tables: dict,
+                 counts: torch.Tensor | None = None) -> dict:
+        """A machine batch one video frame later (a new dict).  Given
+        ``counts`` (``[N]`` int32 on the state's device), each machine's
+        number of emulated instructions in the frame is written there."""
+        dev = self._check(g, tables, counts)
         if dev.type == "cpu":
-            return machine_kernel.frame(g, tables)
+            return machine_kernel.frame(g, tables, counts)
         if dev.type != "cuda":
             raise ValueError(f"machine_frame: no kernel for {dev}")
         lib = self._library()
@@ -124,21 +152,23 @@ class MachineFrame:
         # Fresh, contiguous buffers that the kernel updates in place.
         scal = torch.stack([g[k].to(torch.int32) for k in SCALARS])
         files = {k: g[k].contiguous().clone() for k in _FILES}
-        rom = tables["rom"].contiguous()
+        fetch = tables["fetch"].contiguous()
         dec = tables["decode"].contiguous()
+        if fetch.data_ptr() % 16:
+            raise ValueError("machine_frame: the fetch table must be 16-byte aligned")
         out = dict(g)
         if n:
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
                 rc = lib.machine_frame_launch(
-                    rom.data_ptr(), rom.shape[0], dec.data_ptr(),
+                    fetch.data_ptr(), tables["nbanks"], dec.data_ptr(),
                     scal.data_ptr(), files["ram"].data_ptr(),
                     files["tia"].data_ptr(), files["cx"].data_ptr(),
-                    files["lines"].data_ptr(), n, stream,
+                    files["lines"].data_ptr(),
+                    None if counts is None else counts.data_ptr(), n,
+                    self.machines_per_warp, int(self.fetch_shared), stream,
                 )
-            if rc != 0:
-                msg = lib.machine_frame_error_string(rc).decode()
-                raise RuntimeError(f"machine_frame kernel launch failed: {msg}")
+            self._raise(rc, "machine_frame")
             self.launches += 1
         for i, k in enumerate(SCALARS):
             out[k] = scal[i] != 0 if k == "wrapped" else scal[i]
@@ -158,9 +188,21 @@ class MachineFrame:
             rc = lib.machine_collisions_launch(
                 rec.data_ptr(), out.data_ptr(), rec.shape[0], stream
             )
-        if rc != 0:
-            msg = lib.machine_frame_error_string(rc).decode()
-            raise RuntimeError(f"machine_collisions kernel launch failed: {msg}")
+        self._raise(rc, "machine_collisions")
+        return out
+
+    def smem_chase(self, iters: int, device="cuda") -> torch.Tensor:
+        """One thread's chain of ``iters`` dependent shared-memory loads (a
+        test entry; not counted in ``launches``): ``[2]`` int64 on the
+        card, the SM clocks the chain took and where it ended."""
+        if iters <= 0 or iters % 8:
+            raise ValueError("machine_frame.smem_chase wants a positive multiple of 8")
+        lib = self._library()
+        out = torch.zeros(2, dtype=torch.int64, device=device)
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream(out.device).cuda_stream
+            rc = lib.machine_smem_chase_launch(out.data_ptr(), iters, stream)
+        self._raise(rc, "machine_smem_chase")
         return out
 
 

@@ -1,12 +1,14 @@
 """What K2's design rests on, measured on one CUDA card.
 
 Run from the repository root: ``python -m envpool_tpu_torch.tools.k2_probe``.
-It builds variants of ``csrc/machine_frame.cu`` (text substitutions into
-copies under ``_build/k2_probe/``), prints each variant's ``-Xptxas -v``
-report, and times each on the pong cart at ``--n`` machines with lanes in
-lockstep (every machine gets the same joystick inputs) and lanes that
-differ, in turns (A B ... B A).  Every variant's frames must equal the
-first variant's.  It exits non-zero when no CUDA device is present.
+It prints the frame kernel's ``-Xptxas -v`` report (and writes its SASS
+to ``chiprun_out/k2_probe/``), holds every geometry of K2 (machines per
+warp x fetch table in shared memory or read-only cache) against the plain
+frame on the pong, F6 and a random cart, measures the latency of one
+dependent shared-memory load, and times every geometry on the pong cart
+at ``--n`` machines with lanes that differ and lanes in lockstep (every
+machine gets the same joystick inputs), in turns (A B ... B A), then at
+``--wide`` machines.  It exits non-zero when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -19,69 +21,63 @@ import sys
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _REPO = _PKG.parent
 _SOURCE = _PKG / "csrc" / "machine_frame.cu"
-_OUT = _PKG / "_build" / "k2_probe"
-
-# name -> {text in machine_frame.cu: replacement}
-VARIANTS = {
-    "threads32": {},
-    "threads8": {"constexpr int kThreads = 32;": "constexpr int kThreads = 8;"},
-}
+_OUT = _REPO / "chiprun_out" / "k2_probe"
+SEED = 20260
 
 
-def _smi(query: str) -> str:
+def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
 
-def _variant_source(name: str, subs: dict) -> pathlib.Path:
-    text = _SOURCE.read_text()
-    for old, new in subs.items():
-        if old not in text:
-            raise RuntimeError(f"variant {name}: {old!r} not in the source")
-        text = text.replace(old, new)
-    path = _OUT / name / "machine_frame.cu"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(text)
-    return path
-
-
-def _ptxas(src: pathlib.Path) -> str:
+def ptxas_report(src: pathlib.Path = _SOURCE, sass_dir: pathlib.Path | None = None) -> str:
+    """``nvcc -Xptxas -v`` lines of every kernel in ``src``; with
+    ``sass_dir``, its SASS (``cuobjdump -sass``) is written there."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    nvcc = pathlib.Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "nvcc"
+    bin_dir = pathlib.Path(CUDA_HOME or "/usr/local/cuda") / "bin"
+    out = (sass_dir or _OUT) / "machine_frame.cubin"
+    out.parent.mkdir(parents=True, exist_ok=True)
     res = subprocess.run(
-        [str(nvcc), "-O3", "-gencode=arch=compute_90a,code=sm_90a",
-         "-Xptxas", "-v", "-cubin", "-o", str(src.with_suffix(".cubin")),
-         str(src)],
+        [str(bin_dir / "nvcc"), "-O3", "-gencode=arch=compute_90a,code=sm_90a",
+         "-Xptxas", "-v", "-cubin", "-o", str(out), str(src)],
         capture_output=True, text=True, timeout=600,
     )
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+    if sass_dir is not None:
+        sass = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(out)],
+                              capture_output=True, text=True, timeout=300)
+        (sass_dir / "machine_frame.sass").write_text(sass.stdout)
     return "\n".join(line for line in res.stderr.splitlines()
                      if "registers" in line or "stack frame" in line
-                     or "Function properties" in line or "Compiling" in line)
+                     or "Compiling entry" in line)
 
 
-def _machines(rom, n: int, differ: bool) -> dict:
-    import torch
-
+def carts():
     sys.path.insert(0, str(_REPO / "tests"))
     import machine_carts
 
+    return machine_carts
+
+
+def machines(rom, n: int, differ: bool = True, device="cuda") -> dict:
+    import torch
+
     from envpool_tpu_torch.envs.atari import cpu6502, tia
 
-    swcha, inpt4 = machine_carts.lane_inputs(n, 20260)
+    swcha, inpt4 = carts().lane_inputs(n, SEED)
     if not differ:
         swcha, inpt4 = swcha[:1].repeat(n), inpt4[:1].repeat(n)
-    g = tia.attach_tia(cpu6502.make_machine(rom, n, "cuda"))
-    g.update(swcha=torch.as_tensor(swcha, device="cuda"),
-             inpt4=torch.as_tensor(inpt4, device="cuda"))
+    g = tia.attach_tia(cpu6502.make_machine(rom, n, device))
+    g.update(swcha=torch.as_tensor(swcha, device=device),
+             inpt4=torch.as_tensor(inpt4, device=device))
     return g
 
 
-def _time(kernel, g: dict, tables: dict, frames: int) -> tuple[float, dict]:
+def time_frames(kernel, g: dict, tables: dict, frames: int) -> tuple[float, dict]:
     """ms per frame over ``frames`` frames from ``g``, and the last state."""
     import torch
 
@@ -96,57 +92,107 @@ def _time(kernel, g: dict, tables: dict, frames: int) -> tuple[float, dict]:
     return start.elapsed_time(end) / frames, g
 
 
+def smem_latency(kernel, iters: int = 1 << 20) -> tuple[float, float]:
+    """(SM clocks, ns) of one dependent shared-memory load: one thread's
+    pointer chase, clocks from ``clock64``, ns from CUDA events."""
+    import torch
+
+    kernel.smem_chase(iters)  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = kernel.smem_chase(iters)
+    end.record()
+    torch.cuda.synchronize()
+    return int(out[0]) / iters, start.elapsed_time(end) * 1e6 / iters
+
+
+def geometries():
+    from envpool_tpu_torch.ops.cuda_machine import GEOMETRIES
+
+    return [(mpw, shared) for mpw in GEOMETRIES for shared in (True, False)]
+
+
+def name(geo) -> str:
+    mpw, shared = geo
+    return f"{mpw}/warp {'shared' if shared else 'ldg'}"
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1024)
+    ap.add_argument("--wide", type=int, default=4096)
     ap.add_argument("--frames", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k2_probe: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(_REPO / "tests"))
-    import machine_carts
-
     from envpool_tpu_torch.envs.atari import machine_kernel
-    from envpool_tpu_torch.ops.cuda_machine import MachineFrame
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame as k2
 
-    print(f"device: {torch.cuda.get_device_name(0)}; {_smi('name,power.limit')}")
-    kernels = {}
-    for name, subs in VARIANTS.items():
-        src = _variant_source(name, subs)
-        print(f"[{name}] ptxas:\n{_ptxas(src)}")
-        kernels[name] = MachineFrame(src, src.parent, f"k2_probe_{name}")
-        kernels[name].build()
+    print(f"device: {torch.cuda.get_device_name(0)}; {smi('name,power.limit')}")
+    print(f"ptxas:\n{ptxas_report(sass_dir=_OUT)}")
+    print(f"K2 build: {k2.build():.1f} s")
+    mc = carts()
 
-    rom = machine_carts.pong_rom()
+    # Every geometry against the plain frame.
+    cases = [("pong", mc.pong_rom(), 257, 3), ("f6", mc.f6_rom(), 20, 2),
+             ("random0", mc.random_rom(0), 20, 1)]
+    for cart, rom, n, frames in cases:
+        tables = machine_kernel.build_tables(rom, "cuda")
+        plain = [machines(rom, n)]
+        want = torch.zeros(n, dtype=torch.int32, device="cuda")
+        plain_counts = []
+        for _ in range(frames):
+            plain.append(machine_kernel.frame(plain[-1], tables, want))
+            plain_counts.append(want.clone())
+        for geo in geometries():
+            k2.machines_per_warp, k2.fetch_shared = geo
+            g = plain[0]
+            got = torch.zeros(n, dtype=torch.int32, device="cuda")
+            for f in range(frames):
+                g = k2(g, tables, got)
+                torch.cuda.synchronize()
+                bad = [k for k in plain[f + 1] if not torch.equal(g[k], plain[f + 1][k])]
+                if bad or not torch.equal(got, plain_counts[f]):
+                    raise RuntimeError(f"{name(geo)} differs from plain on {cart} "
+                                       f"frame {f}: {bad or 'counts'}")
+        print(f"K2 vs plain [{cart}, {n} lanes x {frames} frames]: every geometry "
+              f"equal in every leaf and instruction count "
+              f"(max {int(plain_counts[-1].max())} instructions)")
+
+    clocks, ns = smem_latency(k2)
+    print(f"dependent shared-memory load: {clocks:.2f} SM clocks, {ns:.3f} ns "
+          f"(SM clock {smi('clocks.sm')})")
+
+    rom = mc.pong_rom()
     tables = machine_kernel.build_tables(rom, "cuda")
-    warm = {}
-    for differ in (True, False):
-        g = _machines(rom, args.n, differ)
-        for _ in range(6):  # as bench.py: steady frames after 6
-            g = kernels["threads32"](g, tables)
-        warm[differ] = g
-    order = list(VARIANTS) + list(reversed(VARIANTS))
     times: dict = {}
-    finals: dict = {}
-    for name in order:
-        for differ in (True, False):
-            ms, g = _time(kernels[name], warm[differ], tables, args.frames)
-            times.setdefault((name, differ), []).append(ms)
-            finals.setdefault(differ, {})[name] = g
-            clock = _smi("clocks.sm")
-            print(f"{name:>10} lanes {'differ' if differ else 'lockstep'}: "
-                  f"{ms:.4f} ms/frame at {args.n} machines (SM clock {clock})")
-    for differ, by_name in finals.items():
-        ref = by_name[next(iter(VARIANTS))]
-        for name, g in by_name.items():
-            bad = [k for k in ref if not torch.equal(ref[k], g[k])]
-            if bad:
-                raise RuntimeError(f"{name} differs from {next(iter(VARIANTS))}: {bad}")
-    for (name, differ), ms in times.items():
-        print(f"summary {name} {'differ' if differ else 'lockstep'}: "
+    for n, modes in ((args.n, (True, False)), (args.wide, (True,))):
+        warm = {}
+        for differ in modes:
+            g = machines(rom, n, differ)
+            k2.machines_per_warp, k2.fetch_shared = (1, True)
+            for _ in range(6):  # as bench.py: steady frames after 6
+                g = k2(g, tables)
+            counts = torch.zeros(n, dtype=torch.int32, device="cuda")
+            k2(g, tables, counts)
+            warm[differ] = g
+            print(f"{n} machines, lanes {'differ' if differ else 'lockstep'}: "
+                  f"instructions per machine in frame 7: max {int(counts.max())}, "
+                  f"mean {float(counts.float().mean()):.1f}")
+        order = geometries() + geometries()[::-1]
+        for geo in order:
+            k2.machines_per_warp, k2.fetch_shared = geo
+            for differ in modes:
+                ms, _ = time_frames(k2, warm[differ], tables, args.frames)
+                times.setdefault((n, geo, differ), []).append(ms)
+        print(f"SM clock after the {n}-machine runs: {smi('clocks.sm')}")
+    for (n, geo, differ), ms in times.items():
+        print(f"timing {n} machines {name(geo):>14} lanes "
+              f"{'differ' if differ else 'lockstep'}: "
               + ", ".join(f"{t:.4f}" for t in ms) + " ms/frame")
     print("k2_probe: ok")
     return 0
