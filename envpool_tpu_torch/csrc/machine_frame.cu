@@ -13,38 +13,7 @@
 // cycles - 76).  The frame ends after the slot in which VSYNC wrapped the
 // beam or scanline reached 262.
 //
-// Bound: neither bytes nor arithmetic rate.  Device memory sees only the
-// state in and out and 192 * 24 * 4 bytes of lines per machine.  What
-// bounds the kernel is the serial chain of emulated instructions of one
-// machine (~3k per pong frame): each instruction's fetch is a load whose
-// address depends on the instruction before it, so a frame takes at least
-// (the most instructions any machine runs) x (one dependent shared-memory
-// load).  The design shortens what each link of that chain costs:
-//
-// * One 64-bit fetch word per cart offset (machine_kernel.build_tables'
-//   "fetch": the three instruction bytes and the decode of the first, the
-//   JAX meta row) replaces three byte fetches and a decode lookup; the bus
-//   fetch stays only where the JAX rule asks for it (PC below $1000 or in
-//   a 4K window's last two bytes).  The cart's bytes are the words' low
-//   bytes, so there is no second copy of the ROM.
-// * What every instruction reads stays in registers: the 6502 and beam
-//   registers, the five object positions (indexed by constants only) and
-//   the RESMP centring offsets, refreshed on writes to NUSIZ0/1 and
-//   RESMP0/1.
-// * A group of lanes runs one machine (kMpw machines per warp), all of
-//   them through the same instruction chain, so a warp diverges only
-//   between its machines, and never with one machine per warp.  The lanes
-//   of a group share the line's parallel work: the five 32-pixel words of
-//   the collision test (OR-reduced across the group), the 24 columns of
-//   the record row, the eight latches, HMOVE's five motions and the HMCLR
-//   and CXCLR clears.
-// * Blocks of 8 machines, so 1024 machines spread over 128 SMs.  The
-//   fetch table goes to shared memory with one bulk asynchronous copy per
-//   4K bank (cp.async.bulk, TMA's 1-D form, completing on an mbarrier)
-//   while the block loads its machines' state; machine files are
-//   byte-major ([byte][machine]), so the coalesced state load and store
-//   cost one pass each.  A 6502 has no matrix products: tensor cores have
-//   no part here.
+// DESIGN
 //
 // Arithmetic is unsigned where it may wrap (cycles), as JAX lets int32
 // wrap; shifts never take negative amounts.
@@ -65,8 +34,10 @@ constexpr int kNReg = 24;
 constexpr int kCyclesPerLine = 76;
 constexpr int kBankWords = 4096;  // fetch words per 4K bank
 
-// A machine's byte files: RAM, TIA register file, collision latches.
-constexpr int kRam = 0, kTia = 128, kCx = 192, kFiles = 200;
+// A machine's bytes: RAM; the TIA read map ($0-$F: collision latches,
+// zeros, INPT4, $80, zeros); SWCHA; the TIA register file.
+constexpr int kRam = 0, kCx = 128, kZero = 136, kInpt4 = 140, kC80 = 141,
+              kSwcha = 144, kTia = 148, kFiles = 212;
 
 // Scalar rows of the packed [NS, N] state: machine_kernel.SCALARS order.
 enum Scalar {
@@ -89,13 +60,50 @@ enum Op {
 constexpr uint32_t F_C = 0x01, F_Z = 0x02, F_I = 0x04, F_D = 0x08,
                    F_B = 0x10, F_U = 0x20, F_V = 0x40, F_N = 0x80;
 
-// Mode classes as bit sets over Mode.
-constexpr uint32_t kMemModes = (1u << ZP) | (1u << ZPX) | (1u << ZPY) |
-                               (1u << ABS) | (1u << ABX) | (1u << ABY) |
-                               (1u << IND) | (1u << IZX) | (1u << IZY);
-constexpr uint32_t kZeroPage = (1u << ZP) | (1u << ZPX) | (1u << ZPY);
-constexpr uint32_t kIndexX = (1u << ZPX) | (1u << ABX);
-constexpr uint32_t kIndexY = (1u << ZPY) | (1u << ABY);
+// Each opcode's decode, mode | op << 8 | size << 16 | cycles << 24: the
+// port's cpu6502.CPU_TABLES, which the wrapper checks this copy against
+// when it loads the kernel.
+constexpr uint32_t kDecode[256] = {
+    0x07012E00, 0x0602110A, 0x02013700, 0x02013700, 0x02013700, 0x03021103, 0x05021E03, 0x02013700,
+    0x03010D00, 0x02021102, 0x02011E01, 0x02013700, 0x02013700, 0x04031106, 0x06031E06, 0x02013700,
+    0x02022A0C, 0x0502110B, 0x02013700, 0x02013700, 0x02013700, 0x04021104, 0x06021E04, 0x02013700,
+    0x02013000, 0x04031108, 0x02013700, 0x02013700, 0x02013700, 0x04031107, 0x07031E07, 0x02013700,
+    0x06032306, 0x0602100A, 0x02013700, 0x02013700, 0x03022D03, 0x03021003, 0x05022003, 0x02013700,
+    0x04010F00, 0x02021002, 0x02012001, 0x02013700, 0x04032D06, 0x04031006, 0x06032006, 0x02013700,
+    0x0202280C, 0x0502100B, 0x02013700, 0x02013700, 0x02013700, 0x04021004, 0x06022004, 0x02013700,
+    0x02013400, 0x04031008, 0x02013700, 0x02013700, 0x02013700, 0x04031007, 0x07032007, 0x02013700,
+    0x06012F00, 0x0602120A, 0x02013700, 0x02013700, 0x02013700, 0x03021203, 0x05021F03, 0x02013700,
+    0x03010C00, 0x02021202, 0x02011F01, 0x02013700, 0x03032206, 0x04031206, 0x06031F06, 0x02013700,
+    0x02022B0C, 0x0502120B, 0x02013700, 0x02013700, 0x02013700, 0x04021204, 0x06021F04, 0x02013700,
+    0x02013200, 0x04031208, 0x02013700, 0x02013700, 0x02013700, 0x04031207, 0x07031F07, 0x02013700,
+    0x06012400, 0x0602130A, 0x02013700, 0x02013700, 0x02013700, 0x03021303, 0x05022103, 0x02013700,
+    0x04010E00, 0x02021302, 0x02012101, 0x02013700, 0x05032209, 0x04031306, 0x06032106, 0x02013700,
+    0x02022C0C, 0x0502130B, 0x02013700, 0x02013700, 0x02013700, 0x04021304, 0x06022104, 0x02013700,
+    0x02013600, 0x04031308, 0x02013700, 0x02013700, 0x02013700, 0x04031307, 0x07032107, 0x02013700,
+    0x02013700, 0x0602030A, 0x02013700, 0x02013700, 0x03020503, 0x03020303, 0x03020403, 0x02013700,
+    0x02011D00, 0x02013700, 0x02010800, 0x02013700, 0x04030506, 0x04030306, 0x04030406, 0x02013700,
+    0x0202250C, 0x0602030B, 0x02013700, 0x02013700, 0x04020504, 0x04020304, 0x04020405, 0x02013700,
+    0x02010900, 0x05030308, 0x02010B00, 0x02013700, 0x02013700, 0x05030307, 0x02013700, 0x02013700,
+    0x02020202, 0x0602000A, 0x02020102, 0x02013700, 0x03020203, 0x03020003, 0x03020103, 0x02013700,
+    0x02010700, 0x02020002, 0x02010600, 0x02013700, 0x04030206, 0x04030006, 0x04030106, 0x02013700,
+    0x0202260C, 0x0502000B, 0x02013700, 0x02013700, 0x04020204, 0x04020004, 0x04020105, 0x02013700,
+    0x02013300, 0x04030008, 0x02010A00, 0x02013700, 0x04030207, 0x04030007, 0x04030108, 0x02013700,
+    0x02021702, 0x0602150A, 0x02013700, 0x02013700, 0x03021703, 0x03021503, 0x05021B03, 0x02013700,
+    0x02011A00, 0x02021502, 0x02011C00, 0x02013700, 0x04031706, 0x04031506, 0x06031B06, 0x02013700,
+    0x0202290C, 0x0502150B, 0x02013700, 0x02013700, 0x02013700, 0x04021504, 0x06021B04, 0x02013700,
+    0x02013100, 0x04031508, 0x02013700, 0x02013700, 0x02013700, 0x04031507, 0x07031B07, 0x02013700,
+    0x02021602, 0x0602140A, 0x02013700, 0x02013700, 0x03021603, 0x03021403, 0x05021803, 0x02013700,
+    0x02011900, 0x02021402, 0x02013700, 0x02013700, 0x04031606, 0x04031406, 0x06031806, 0x02013700,
+    0x0202270C, 0x0502140B, 0x02013700, 0x02013700, 0x02013700, 0x04021404, 0x06021804, 0x02013700,
+    0x02013500, 0x04031408, 0x02013700, 0x02013700, 0x02013700, 0x04031407, 0x07031807, 0x02013700,
+};
+
+// TIA writes whose bookkeeping is off the common path: VSYNC, NUSIZ0/1,
+// RESMP0/1, HMOVE, HMCLR, CXCLR.
+constexpr uint64_t kBeamRare = (1ull << 0x00) | (1ull << 0x04) |
+                               (1ull << 0x05) | (1ull << 0x28) |
+                               (1ull << 0x29) | (1ull << 0x2A) |
+                               (1ull << 0x2B) | (1ull << 0x2C);
 
 // Line-record columns (tia.R_*).
 enum Rec {
@@ -214,6 +222,15 @@ struct Line {
   int posp0, posp1, posm0, posm1, posbl;
 };
 
+// How many of the six objects draw on the line: an upper bound, as a
+// player with a non-zero pattern counts wherever it is placed.
+__device__ __forceinline__ int drawn(const Line& r) {
+  const bool pf = (((r.pf0 >> 4) & 0xFu) | (r.pf1 & 0xFFu) | (r.pf2 & 0xFFu)) != 0;
+  const bool m0 = (r.enam0 & 2u) != 0 && (r.resmp0 & 2u) == 0;
+  const bool m1 = (r.enam1 & 2u) != 0 && (r.resmp1 & 2u) == 0;
+  return pf + (r.grp0 != 0) + (r.grp1 != 0) + m0 + m1 + ((r.enabl & 2u) != 0);
+}
+
 // Overlap bits of word w: latch k's bit 7 at bit 2k and bit 6 at 2k + 1,
 // in the TIA read map's order: CXM0P(M0·P1, M0·P0) CXM1P(M1·P0, M1·P1)
 // CXP0FB(P0·PF, P0·BL) CXP1FB(P1·PF, P1·BL) CXM0FB(M0·PF, M0·BL)
@@ -250,22 +267,21 @@ __device__ __forceinline__ int mod160(int v) {
   return v < 0 ? v + 160 : v;
 }
 
-template <int kMpw, bool kSharedFetch>
+template <int kMpw, bool kBanked>
 struct Machine {
   using G = Geometry<kMpw>;
 
   // Registers.
-  uint32_t a, x, y, sp, pc, p, bank, cycles, swcha, inpt4;
+  uint32_t a, x, y, sp, pc, p, bank, cycles;
   int waddr, scanline, line_cycles, grp0_old, grp1_old, enabl_old, wrapped;
   int pos[5];      // P0 P1 M0 M1 BL; indexed by constants only
   int center[2];   // RESMP0/1: missile = player + this while set, else -1
+  bool resmp;      // either RESMP set
   uint32_t vsync_before;  // VSYNC before this instruction wrote it
   uint32_t instructions;
-  // Byte i of this machine's files is files[i * kMachines].
+  // Byte i of this machine's bytes is files[i * kMachines].
   uint8_t* files;
-  const uint2* table;      // fetch words, shared or global
-  const uint32_t* decode;  // shared: mode | op << 8 | size << 16 | cyc << 24
-  uint32_t bank_words;     // kBankWords for banked carts, else 0
+  const uint2* table;      // the cart's fetch words, in shared memory
   int nbanks;
   int sub;                 // lane within the group
   unsigned mask;           // the group's lanes
@@ -274,40 +290,38 @@ struct Machine {
     return files[i * G::kMachines];
   }
 
-  __device__ __forceinline__ uint2 word(uint32_t off) const {
-    if constexpr (kSharedFetch) {
-      return table[off];
-    } else {
-      return __ldg(table + off);
-    }
-  }
-
-  __device__ __forceinline__ uint32_t rom(uint32_t off) const {
-    const uint8_t* b = reinterpret_cast<const uint8_t*>(table + off);
-    if constexpr (kSharedFetch) {
-      return *b;
-    } else {
-      return __ldg(b);
-    }
-  }
-
   __device__ __forceinline__ uint32_t rom_base() const {
-    return bank * bank_words;
-  }
-
-  // Full bus read (machine_kernel._read).
-  __device__ __forceinline__ uint32_t read(uint32_t addr) {
-    const uint32_t a13 = addr & 0x1FFFu;
-    if (a13 >= 0x1000u) return rom(rom_base() + (a13 & 0xFFFu));
-    if ((a13 & 0x200u) == 0) {
-      if (a13 & 0x80u) return file(kRam + (a13 & 0x7Fu));
-      const uint32_t idx = a13 & 0xFu;  // TIA read map
-      if (idx < 8) return file(kCx + idx);
-      if (idx == 0xC) return inpt4 & 0xFFu;
-      if (idx == 0xD) return 0x80u;
+    if constexpr (kBanked) {
+      return bank * kBankWords;
+    } else {
       return 0;
     }
-    return a13 == 0x280u ? (swcha & 0xFFu) : 0u;
+  }
+
+  // Full bus read (machine_kernel._read), without a branch: the cart byte
+  // (a fetch word's low byte), or RAM, the TIA read map or SWCHA.
+  __device__ __forceinline__ uint32_t read(uint32_t addr) {
+    const uint32_t a13 = addr & 0x1FFFu;
+    uint32_t slot = (a13 & 0x80u) ? kRam + (a13 & 0x7Fu) : kCx + (a13 & 0xFu);
+    if (a13 & 0x200u) slot = a13 == 0x280u ? kSwcha : kZero;
+    const uint8_t* cart =
+        reinterpret_cast<const uint8_t*>(table + rom_base() + (a13 & 0xFFFu));
+    return *(a13 >= 0x1000u ? cart : &file(slot));
+  }
+
+  // Bus read below $100 (zero page; also the stack page, $1xx): RAM or
+  // the TIA read map.
+  __device__ __forceinline__ uint32_t read_zp(uint32_t addr) {
+    return file((addr & 0x80u) ? kRam + (addr & 0x7Fu) : kCx + (addr & 0xFu));
+  }
+
+  // A write to TIA register ``reg`` and its beam bookkeeping.
+  __device__ __forceinline__ void tia_write(uint32_t reg, uint32_t value) {
+    if (reg == 0) vsync_before = file(kTia);
+    file(kTia + reg) = static_cast<uint8_t>(value);
+    waddr = static_cast<int>(reg);
+    beam(static_cast<int>(reg));
+    center_missiles();
   }
 
   // Bus write: RAM, or a TIA register below $40 (recorded in waddr).
@@ -316,9 +330,15 @@ struct Machine {
     if (a13 < 0x1000u && (a13 & 0x200u) == 0 && (a13 & 0x80u)) {
       file(kRam + (a13 & 0x7Fu)) = static_cast<uint8_t>(value);
     } else if (a13 < 0x40u) {
-      if (a13 == 0) vsync_before = file(kTia);
-      file(kTia + a13) = static_cast<uint8_t>(value);
-      waddr = static_cast<int>(a13);
+      tia_write(a13, value);
+    }
+  }
+
+  __device__ __forceinline__ void write_zp(uint32_t addr, uint32_t value) {
+    if (addr & 0x80u) {
+      file(kRam + (addr & 0x7Fu)) = static_cast<uint8_t>(value);
+    } else if (addr < 0x40u) {
+      tia_write(addr, value);
     }
   }
 
@@ -327,7 +347,7 @@ struct Machine {
     if (s & 0x80u) file(kRam + (s & 0x7Fu)) = static_cast<uint8_t>(value);
   }
 
-  __device__ __forceinline__ uint32_t zn(uint32_t flags, uint32_t v) {
+  __device__ __forceinline__ static uint32_t zn(uint32_t flags, uint32_t v) {
     v &= 0xFFu;
     return (flags & ~(F_Z | F_N)) | (v == 0 ? F_Z : 0u) | (v & F_N);
   }
@@ -344,6 +364,17 @@ struct Machine {
       const uint32_t mode7 = file(kTia + 0x04 + m) & 7u;
       const int scale = mode7 == 5 ? 2 : mode7 == 7 ? 4 : 1;
       center[m] = (file(kTia + 0x28 + m) & 2u) ? 4 * scale : -1;
+    }
+    resmp = center[0] >= 0 || center[1] >= 0;
+  }
+
+  // RESMP: while set, the missile tracks its player's center.  Only TIA
+  // writes move what this reads, so it runs after each of them, and at
+  // the end of each line for the frame's first instructions.
+  __device__ __forceinline__ void center_missiles() {
+    if (__builtin_expect(resmp, 0)) {
+      if (center[0] >= 0) pos[2] = mod160(pos[0] + center[0]);
+      if (center[1] >= 0) pos[3] = mod160(pos[1] + center[1]);
     }
   }
 
@@ -368,39 +399,305 @@ struct Machine {
     }
   }
 
-  // TIA beam bookkeeping after a write to TIA register ``wrote``
-  // (machine_kernel.step_batched's tail, tia._instr).
-  __device__ __forceinline__ void beam(int wrote) {
-    switch (wrote) {
-      case 0x00:
-        if ((vsync_before & 2u) && !(file(kTia) & 2u)) {
-          if (scanline > 3) wrapped = 1;
-          scanline = 3;
-        }
-        break;
-      case 0x02: line_cycles = kCyclesPerLine; break;
-      case 0x04: case 0x05: case 0x28: case 0x29: refresh_centers(); break;
-      case 0x10: case 0x11: case 0x12: case 0x13: case 0x14: {
-        const int beam_x = min(max(line_cycles * 3 - 68, 0), 159);
+  // TIA beam bookkeeping after a write to TIA register ``w``
+  // (machine_kernel.step_batched's tail, tia._instr): the common registers
+  // without a branch, the rest behind one.
+  __device__ __forceinline__ void beam(int w) {
+    if (w == 0x02) line_cycles = kCyclesPerLine;
+    if (w == 0x1B) grp1_old = file(kTia + 0x1C);
+    if (w == 0x1C) {
+      grp0_old = file(kTia + 0x1B);
+      enabl_old = file(kTia + 0x1F);
+    }
+    const int beam_x = min(max(line_cycles * 3 - 68, 0), 159);
 #pragma unroll
-        for (int k = 0; k < 5; ++k) {
-          if (wrote == 0x10 + k) pos[k] = beam_x;
-        }
-        break;
+    for (int k = 0; k < 5; ++k) {
+      if (w == 0x10 + k) pos[k] = beam_x;
+    }
+    if (__builtin_expect((kBeamRare >> w) & 1u, 0)) {
+      switch (w) {
+        case 0x00:
+          if ((vsync_before & 2u) && !(file(kTia) & 2u)) {
+            if (scanline > 3) wrapped = 1;
+            scanline = 3;
+          }
+          break;
+        case 0x2A: hmove(); break;
+        case 0x2B: clear(kTia + 0x20, 5); break;
+        case 0x2C: clear(kCx, 8); break;
+        default: refresh_centers(); break;  // NUSIZ0/1, RESMP0/1
       }
-      case 0x1B: grp1_old = file(kTia + 0x1C); break;
-      case 0x1C:
-        grp0_old = file(kTia + 0x1B);
-        enabl_old = file(kTia + 0x1F);
-        break;
-      case 0x2A: hmove(); break;
-      case 0x2B: clear(kTia + 0x20, 5); break;
-      case 0x2C: clear(kCx, 8); break;
-      default: break;
     }
   }
 
-  __device__ __forceinline__ void step();
+  // One instruction of opcode kOpc, everything its decode fixes resolved
+  // at compile time (machine_kernel.step_batched for one lane).
+  template <uint32_t kOpc>
+  __device__ __forceinline__ void exec(uint32_t b1, uint32_t b2) {
+    constexpr uint32_t kD = kDecode[kOpc];
+    constexpr uint32_t kMode = kD & 0xFFu, kOp = (kD >> 8) & 0xFFu,
+                       kSize = (kD >> 16) & 0xFFu, kCyc = kD >> 24;
+    constexpr bool kZeroPage = kMode == ZP || kMode == ZPX || kMode == ZPY;
+    constexpr bool kTouches = kZeroPage || kMode == ABS || kMode == ABX ||
+                              kMode == ABY || kMode == IND || kMode == IZX ||
+                              kMode == IZY;
+    constexpr bool kReads =
+        kOp == O_LDA || kOp == O_LDX || kOp == O_LDY || kOp == O_AND ||
+        kOp == O_ORA || kOp == O_EOR || kOp == O_ADC || kOp == O_SBC ||
+        kOp == O_CMP || kOp == O_CPX || kOp == O_CPY || kOp == O_BIT ||
+        kOp == O_INC || kOp == O_DEC || kOp == O_ASL || kOp == O_LSR ||
+        kOp == O_ROL || kOp == O_ROR;
+    uint32_t next_pc = (pc + kSize) & 0xFFFFu;
+    cycles += kCyc;
+    line_cycles += static_cast<int>(kCyc);
+
+    const uint32_t abs_a = b1 | (b2 << 8);
+    uint32_t addr = 0;
+    if constexpr (kMode == ZP) {
+      addr = b1;
+    } else if constexpr (kMode == ZPX) {
+      addr = (b1 + x) & 0xFFu;
+    } else if constexpr (kMode == ZPY) {
+      addr = (b1 + y) & 0xFFu;
+    } else if constexpr (kMode == ABS || kMode == IND) {
+      addr = abs_a;
+    } else if constexpr (kMode == ABX) {
+      addr = (abs_a + x) & 0xFFFFu;
+    } else if constexpr (kMode == ABY) {
+      addr = (abs_a + y) & 0xFFFFu;
+    } else if constexpr (kMode == IZX) {
+      const uint32_t ptr = (b1 + x) & 0xFFu;
+      addr = read_zp(ptr) | (read_zp((ptr + 1) & 0xFFu) << 8);
+    } else if constexpr (kMode == IZY) {
+      addr = ((read_zp(b1) | (read_zp((b1 + 1) & 0xFFu) << 8)) + y) & 0xFFFFu;
+    }
+    uint32_t v = 0;
+    if constexpr (kMode == IMM) {
+      v = b1;
+    } else if constexpr (kMode == ACC) {
+      v = a;
+    } else if constexpr (kReads && kZeroPage) {
+      v = read_zp(addr);
+    } else if constexpr (kReads && kTouches) {
+      v = read(addr);
+    }
+    if constexpr (kMode == IND) {  // JMP (ind): the vector's high byte wraps in its page
+      const uint32_t am = abs_a & 0x1FFFu;
+      const uint32_t wrap = (am & 0xFF00u) | ((am + 1) & 0xFFu);
+      addr = read(am) | (read(wrap) << 8);
+    }
+    auto store = [&](uint32_t value) {
+      if constexpr (kZeroPage) {
+        write_zp(addr, value);
+      } else {
+        write(addr, value);
+      }
+    };
+    const uint32_t carry = p & F_C;
+
+    if constexpr (kOp == O_LDA) {
+      a = v; p = zn(p, v);
+    } else if constexpr (kOp == O_LDX) {
+      x = v; p = zn(p, v);
+    } else if constexpr (kOp == O_LDY) {
+      y = v; p = zn(p, v);
+    } else if constexpr (kOp == O_STA) {
+      store(a);
+    } else if constexpr (kOp == O_STX) {
+      store(x);
+    } else if constexpr (kOp == O_STY) {
+      store(y);
+    } else if constexpr (kOp == O_TAX) {
+      x = a; p = zn(p, a);
+    } else if constexpr (kOp == O_TAY) {
+      y = a; p = zn(p, a);
+    } else if constexpr (kOp == O_TXA) {
+      a = x; p = zn(p, x);
+    } else if constexpr (kOp == O_TYA) {
+      a = y; p = zn(p, y);
+    } else if constexpr (kOp == O_TSX) {
+      x = sp; p = zn(p, sp);
+    } else if constexpr (kOp == O_TXS) {
+      sp = x;
+    } else if constexpr (kOp == O_PHA) {
+      push(sp, a); sp = (sp - 1) & 0xFFu;
+    } else if constexpr (kOp == O_PHP) {
+      push(sp, p | F_B | F_U); sp = (sp - 1) & 0xFFu;
+    } else if constexpr (kOp == O_PLA) {
+      sp = (sp + 1) & 0xFFu;
+      a = read_zp(sp);  // $100 + sp
+      p = zn(p, a);
+    } else if constexpr (kOp == O_PLP) {
+      sp = (sp + 1) & 0xFFu;
+      p = (read_zp(sp) & ~F_B) | F_U;
+    } else if constexpr (kOp == O_AND) {
+      a &= v; p = zn(p, a);
+    } else if constexpr (kOp == O_ORA) {
+      a |= v; p = zn(p, a);
+    } else if constexpr (kOp == O_EOR) {
+      a ^= v; p = zn(p, a);
+    } else if constexpr (kOp == O_ADC) {
+      const uint32_t sum = a + v + carry;
+      const uint32_t rb = sum & 0xFFu;
+      uint32_t q = zn(p, rb) & ~(F_C | F_V);
+      if (__builtin_expect(!(p & F_D), 1)) {
+        q |= (sum > 0xFFu ? F_C : 0u) |
+             ((~(a ^ v) & (a ^ sum) & 0x80u) ? F_V : 0u);
+        a = rb;
+      } else {  // NMOS decimal: Z from the binary sum, N and V mid-fix
+        uint32_t lo = (a & 0x0Fu) + (v & 0x0Fu) + carry;
+        uint32_t hi = (a & 0xF0u) + (v & 0xF0u);
+        if (lo > 0x09u) { hi += 0x10u; lo += 0x06u; }
+        const bool vd = (~(a ^ v) & (a ^ hi) & 0x80u) != 0;
+        const bool nd = (hi & 0x80u) != 0;
+        if (hi > 0x90u) hi += 0x60u;
+        q = (q & ~F_N) | (nd ? F_N : 0u) | (hi > 0xF0u ? F_C : 0u) |
+            (vd ? F_V : 0u);
+        a = ((lo & 0x0Fu) | (hi & 0xF0u)) & 0xFFu;
+      }
+      p = q;
+    } else if constexpr (kOp == O_SBC) {
+      const uint32_t sv = v ^ 0xFFu;
+      const uint32_t sum = a + sv + carry;
+      const uint32_t rb = sum & 0xFFu;
+      p = (zn(p, rb) & ~(F_C | F_V)) | (sum > 0xFFu ? F_C : 0u) |
+          ((~(a ^ sv) & (a ^ sum) & 0x80u) ? F_V : 0u);
+      if (__builtin_expect(!(p & F_D), 1)) {
+        a = rb;
+      } else {
+        // Signed nibble arithmetic; only the low bits of the results count.
+        int lo = static_cast<int>(a & 0x0Fu) - static_cast<int>(v & 0x0Fu) -
+                 static_cast<int>(1u - carry);
+        const bool lo_b = (lo & 0x10) != 0;
+        if (lo_b) lo -= 6;
+        int hi = static_cast<int>(a >> 4) - static_cast<int>(v >> 4) -
+                 (lo_b ? 1 : 0);
+        if (hi & 0x10) hi -= 6;
+        a = (static_cast<uint32_t>(lo) & 0x0Fu) |
+            ((static_cast<uint32_t>(hi) & 0x0Fu) << 4);
+      }
+    } else if constexpr (kOp == O_CMP || kOp == O_CPX || kOp == O_CPY) {
+      const uint32_t src = kOp == O_CMP ? a : kOp == O_CPX ? x : y;
+      p = (zn(p, src - v) & ~F_C) | (src >= v ? F_C : 0u);
+    } else if constexpr (kOp == O_INC || kOp == O_DEC) {
+      const uint32_t r = (kOp == O_INC ? v + 1 : v - 1) & 0xFFu;
+      store(r);
+      p = zn(p, r);
+    } else if constexpr (kOp == O_INX) {
+      x = (x + 1) & 0xFFu; p = zn(p, x);
+    } else if constexpr (kOp == O_INY) {
+      y = (y + 1) & 0xFFu; p = zn(p, y);
+    } else if constexpr (kOp == O_DEX) {
+      x = (x - 1) & 0xFFu; p = zn(p, x);
+    } else if constexpr (kOp == O_DEY) {
+      y = (y - 1) & 0xFFu; p = zn(p, y);
+    } else if constexpr (kOp == O_ASL || kOp == O_LSR || kOp == O_ROL ||
+                         kOp == O_ROR) {
+      uint32_t r, cout;
+      if constexpr (kOp == O_ASL) { r = (v << 1) & 0xFFu; cout = (v >> 7) & 1u; }
+      else if constexpr (kOp == O_LSR) { r = v >> 1; cout = v & 1u; }
+      else if constexpr (kOp == O_ROL) { r = ((v << 1) | carry) & 0xFFu; cout = (v >> 7) & 1u; }
+      else { r = (v >> 1) | (carry << 7); cout = v & 1u; }
+      if constexpr (kMode == ACC) {
+        a = r;
+      } else {
+        store(r);
+      }
+      p = (zn(p, r) & ~F_C) | cout;
+    } else if constexpr (kOp == O_JMP) {
+      next_pc = addr;
+    } else if constexpr (kOp == O_JSR) {
+      const uint32_t ret = (pc + 2) & 0xFFFFu;
+      push(sp, ret >> 8);
+      push((sp - 1) & 0xFFu, ret & 0xFFu);
+      sp = (sp - 2) & 0xFFu;
+      next_pc = abs_a;
+    } else if constexpr (kOp == O_RTS) {
+      const uint32_t lo = read_zp((sp + 1) & 0xFFu);
+      const uint32_t hi = read_zp((sp + 2) & 0xFFu);
+      sp = (sp + 2) & 0xFFu;
+      next_pc = ((lo | (hi << 8)) + 1) & 0xFFFFu;
+    } else if constexpr (kOp == O_RTI) {
+      const uint32_t f = read_zp((sp + 1) & 0xFFu);
+      const uint32_t lo = read_zp((sp + 2) & 0xFFu);
+      const uint32_t hi = read_zp((sp + 3) & 0xFFu);
+      sp = (sp + 3) & 0xFFu;
+      p = (f & ~F_B) | F_U;
+      next_pc = lo | (hi << 8);
+    } else if constexpr (kOp >= O_BCC && kOp <= O_BVS) {
+      constexpr uint32_t kFlag = kOp == O_BCC || kOp == O_BCS ? F_C
+                                 : kOp == O_BEQ || kOp == O_BNE ? F_Z
+                                 : kOp == O_BMI || kOp == O_BPL ? F_N
+                                                                : F_V;
+      constexpr bool kWant = kOp == O_BCS || kOp == O_BEQ || kOp == O_BMI ||
+                             kOp == O_BVS;
+      if (((p & kFlag) != 0) == kWant) {
+        // rel = b1 as a signed byte
+        next_pc = (next_pc + b1 + (b1 < 0x80u ? 0u : 0xFF00u)) & 0xFFFFu;
+      }
+    } else if constexpr (kOp == O_BIT) {
+      p = (p & ~(F_Z | F_N | F_V)) | ((a & v) == 0 ? F_Z : 0u) | (v & 0xC0u);
+    } else if constexpr (kOp == O_CLC) {
+      p &= ~F_C;
+    } else if constexpr (kOp == O_SEC) {
+      p |= F_C;
+    } else if constexpr (kOp == O_CLD) {
+      p &= ~F_D;
+    } else if constexpr (kOp == O_SED) {
+      p |= F_D;
+    } else if constexpr (kOp == O_CLI) {
+      p &= ~F_I;
+    } else if constexpr (kOp == O_SEI) {
+      p |= F_I;
+    } else if constexpr (kOp == O_CLV) {
+      p &= ~F_V;
+    }
+    // BRK, NOP: pc advances by the size only.
+
+    // Bank switching: hotspot on a data/jump access and on the next fetch.
+    if constexpr (kBanked) {
+      const int hot = nbanks == 2 ? 0xFF8 : 0xFF6;
+      if constexpr (kTouches) {
+        const uint32_t acc = addr & 0x1FFFu;
+        const int off = static_cast<int>(acc & 0xFFFu) - hot;
+        if (acc >= 0x1000u && off >= 0 && off < nbanks) {
+          bank = static_cast<uint32_t>(off);
+        }
+      }
+      const uint32_t facc = next_pc & 0x1FFFu;
+      const int foff = static_cast<int>(facc & 0xFFFu) - hot;
+      if (facc >= 0x1000u && foff >= 0 && foff < nbanks) {
+        bank = static_cast<uint32_t>(foff);
+      }
+    }
+    pc = next_pc;
+  }
+
+  __device__ __forceinline__ void step() {
+    ++instructions;
+    waddr = -1;
+    // The batched JAX step's fetch rule: inside a 4K window (and not in
+    // its last two bytes) the fetch word at pc & 0xFFF of the bank, else
+    // three bus reads.
+    uint32_t w = table[rom_base() + (pc & 0xFFFu)].x;
+    if (__builtin_expect(pc < 0x1000u || (pc & 0xFFFu) >= 0xFFDu, 0)) {
+      w = read(pc) | (read(pc + 1) << 8) | (read(pc + 2) << 16);
+    }
+    const uint32_t b1 = (w >> 8) & 0xFFu, b2 = (w >> 16) & 0xFFu;
+#define K2_OP(n) \
+  case n: exec<n>(b1, b2); break;
+#define K2_OP4(n) K2_OP(n) K2_OP(n + 1) K2_OP(n + 2) K2_OP(n + 3)
+#define K2_OP16(n) K2_OP4(n) K2_OP4(n + 4) K2_OP4(n + 8) K2_OP4(n + 12)
+    switch (w & 0xFFu) {
+      K2_OP16(0x00) K2_OP16(0x10) K2_OP16(0x20) K2_OP16(0x30)
+      K2_OP16(0x40) K2_OP16(0x50) K2_OP16(0x60) K2_OP16(0x70)
+      K2_OP16(0x80) K2_OP16(0x90) K2_OP16(0xA0) K2_OP16(0xB0)
+      K2_OP16(0xC0) K2_OP16(0xD0) K2_OP16(0xE0) K2_OP16(0xF0)
+    }
+#undef K2_OP16
+#undef K2_OP4
+#undef K2_OP
+  }
 
   // Record column k of the closing line (VDEL resolved).
   __device__ __forceinline__ int column(int k) {
@@ -444,14 +741,20 @@ struct Machine {
     return r;
   }
 
-  // A visible line closes: its record row and collision latches.
+  // A visible line closes: its record row and collision latches.  With
+  // fewer than two objects drawn no pair can overlap, and the test is
+  // skipped.
   __device__ __forceinline__ void close_visible(int* row) {
     const Line r = line();
     uint32_t bits = 0;
-    for (int w = sub; w < 5; w += G::kLanes) bits |= pair_bits(r, w);
-    bits = __reduce_or_sync(mask, bits);
+    if (drawn(r) >= 2) {
+      for (int w = sub; w < 5; w += G::kLanes) bits |= pair_bits(r, w);
+      bits = __reduce_or_sync(mask, bits);
+    }
     for (int k = sub; k < kNReg; k += G::kLanes) row[k] = column(k);
-    for (int k = sub; k < 8; k += G::kLanes) file(kCx + k) |= latch(bits, k);
+    if (bits != 0) {
+      for (int k = sub; k < 8; k += G::kLanes) file(kCx + k) |= latch(bits, k);
+    }
     __syncwarp(mask);
   }
 
@@ -463,6 +766,7 @@ struct Machine {
            ++count) {
         step();
       }
+      if (instructions > 0) center_missiles();
       const int vis = scanline - kFirstVisible;
       if (vis >= 0 && vis < kVisible) close_visible(lines + vis * kNReg);
       scanline += 1;
@@ -472,280 +776,44 @@ struct Machine {
   }
 };
 
-template <int kMpw, bool kSharedFetch>
-__device__ __forceinline__ void Machine<kMpw, kSharedFetch>::step() {
-  waddr = -1;
-  ++instructions;
-  // The batched JAX step's fetch rule: inside a 4K window (and not in its
-  // last two bytes) the fetch word at pc & 0xFFF of the bank, else the bus.
-  uint32_t w0, w1;
-  if (__builtin_expect(pc >= 0x1000u && (pc & 0xFFFu) < 0xFFDu, 1)) {
-    const uint2 wd = word(rom_base() + (pc & 0xFFFu));
-    w0 = wd.x;
-    w1 = wd.y;
-  } else {
-    const uint32_t opc = read(pc), c1 = read(pc + 1), c2 = read(pc + 2);
-    const uint32_t dec = decode[opc];
-    w0 = opc | (c1 << 8) | (c2 << 16) | (dec << 24);
-    w1 = dec >> 8;
-  }
-  const uint32_t b1 = (w0 >> 8) & 0xFFu, b2 = (w0 >> 16) & 0xFFu,
-                 mode = w0 >> 24;
-  const uint32_t op = w1 & 0xFFu, size = (w1 >> 8) & 0xFFu,
-                 cyc = (w1 >> 16) & 0xFFu;
-
-  const uint32_t mbit = 1u << mode;
-  const uint32_t abs_a = b1 | (b2 << 8);
-  const uint32_t index = (mbit & kIndexX) ? x : (mbit & kIndexY) ? y : 0u;
-  uint32_t addr = (mbit & kZeroPage) ? ((b1 + index) & 0xFFu)
-                                     : ((abs_a + index) & 0xFFFFu);
-  const bool touches = (mbit & kMemModes) != 0;
-  if (!touches) addr = 0;
-  if (__builtin_expect(mode == IZX, 0)) {
-    const uint32_t ptr = (b1 + x) & 0xFFu;
-    addr = read(ptr) | (read((ptr + 1) & 0xFFu) << 8);
-  } else if (__builtin_expect(mode == IZY, 0)) {
-    addr = ((read(b1) | (read((b1 + 1) & 0xFFu) << 8)) + y) & 0xFFFFu;
-  }
-  const uint32_t mem_v = touches ? read(addr) : 0u;
-  if (__builtin_expect(mode == IND, 0)) {
-    // JMP (ind): the vector's high byte wraps in its page.
-    const uint32_t am = abs_a & 0x1FFFu;
-    const uint32_t wrap = (am & 0xFF00u) | ((am + 1) & 0xFFu);
-    addr = read(am) | (read(wrap) << 8);
-  }
-  const uint32_t v = mode == IMM ? b1 : mode == ACC ? a : mem_v;
-  const uint32_t carry = p & F_C;
-  const bool decimal = (p & F_D) != 0;
-  uint32_t next_pc = (pc + size) & 0xFFFFu;
-
-  switch (op) {
-    case O_LDA: a = v; p = zn(p, v); break;
-    case O_LDX: x = v; p = zn(p, v); break;
-    case O_LDY: y = v; p = zn(p, v); break;
-    case O_STA: write(addr, a); break;
-    case O_STX: write(addr, x); break;
-    case O_STY: write(addr, y); break;
-    case O_TAX: x = a; p = zn(p, a); break;
-    case O_TAY: y = a; p = zn(p, a); break;
-    case O_TXA: a = x; p = zn(p, x); break;
-    case O_TYA: a = y; p = zn(p, y); break;
-    case O_TSX: x = sp; p = zn(p, sp); break;
-    case O_TXS: sp = x; break;
-    case O_PHA: push(sp, a); sp = (sp - 1) & 0xFFu; break;
-    case O_PHP: push(sp, p | F_B | F_U); sp = (sp - 1) & 0xFFu; break;
-    case O_PLA:
-      sp = (sp + 1) & 0xFFu;
-      a = read(0x100u + sp);
-      p = zn(p, a);
-      break;
-    case O_PLP:
-      sp = (sp + 1) & 0xFFu;
-      p = (read(0x100u + sp) & ~F_B) | F_U;
-      break;
-    case O_AND: a &= v; p = zn(p, a); break;
-    case O_ORA: a |= v; p = zn(p, a); break;
-    case O_EOR: a ^= v; p = zn(p, a); break;
-    case O_ADC: {
-      const uint32_t sum = a + v + carry;
-      const uint32_t rb = sum & 0xFFu;
-      uint32_t q = zn(p, rb) & ~(F_C | F_V);
-      if (!decimal) {
-        q |= (sum > 0xFFu ? F_C : 0u) |
-             ((~(a ^ v) & (a ^ sum) & 0x80u) ? F_V : 0u);
-        a = rb;
-      } else {  // NMOS decimal: Z from the binary sum, N and V mid-fix
-        uint32_t lo = (a & 0x0Fu) + (v & 0x0Fu) + carry;
-        uint32_t hi = (a & 0xF0u) + (v & 0xF0u);
-        if (lo > 0x09u) { hi += 0x10u; lo += 0x06u; }
-        const bool vd = (~(a ^ v) & (a ^ hi) & 0x80u) != 0;
-        const bool nd = (hi & 0x80u) != 0;
-        if (hi > 0x90u) hi += 0x60u;
-        q = (q & ~F_N) | (nd ? F_N : 0u) | (hi > 0xF0u ? F_C : 0u) |
-            (vd ? F_V : 0u);
-        a = ((lo & 0x0Fu) | (hi & 0xF0u)) & 0xFFu;
-      }
-      p = q;
-      break;
-    }
-    case O_SBC: {
-      const uint32_t sv = v ^ 0xFFu;
-      const uint32_t sum = a + sv + carry;
-      const uint32_t rb = sum & 0xFFu;
-      p = (zn(p, rb) & ~(F_C | F_V)) | (sum > 0xFFu ? F_C : 0u) |
-          ((~(a ^ sv) & (a ^ sum) & 0x80u) ? F_V : 0u);
-      if (decimal) {
-        // Signed nibble arithmetic; only the low bits of the results count.
-        int lo = static_cast<int>(a & 0x0Fu) - static_cast<int>(v & 0x0Fu) -
-                 static_cast<int>(1u - carry);
-        const bool lo_b = (lo & 0x10) != 0;
-        if (lo_b) lo -= 6;
-        int hi = static_cast<int>(a >> 4) - static_cast<int>(v >> 4) -
-                 (lo_b ? 1 : 0);
-        if (hi & 0x10) hi -= 6;
-        a = (static_cast<uint32_t>(lo) & 0x0Fu) |
-            ((static_cast<uint32_t>(hi) & 0x0Fu) << 4);
-      } else {
-        a = rb;
-      }
-      break;
-    }
-    case O_CMP: case O_CPX: case O_CPY: {
-      const uint32_t src = op == O_CMP ? a : op == O_CPX ? x : y;
-      p = (zn(p, src - v) & ~F_C) | (src >= v ? F_C : 0u);
-      break;
-    }
-    case O_INC: case O_DEC: {
-      const uint32_t r = (op == O_INC ? mem_v + 1 : mem_v - 1) & 0xFFu;
-      write(addr, r);
-      p = zn(p, r);
-      break;
-    }
-    case O_INX: x = (x + 1) & 0xFFu; p = zn(p, x); break;
-    case O_INY: y = (y + 1) & 0xFFu; p = zn(p, y); break;
-    case O_DEX: x = (x - 1) & 0xFFu; p = zn(p, x); break;
-    case O_DEY: y = (y - 1) & 0xFFu; p = zn(p, y); break;
-    case O_ASL: case O_LSR: case O_ROL: case O_ROR: {
-      uint32_t r, cout;
-      if (op == O_ASL) { r = (v << 1) & 0xFFu; cout = (v >> 7) & 1u; }
-      else if (op == O_LSR) { r = v >> 1; cout = v & 1u; }
-      else if (op == O_ROL) { r = ((v << 1) | carry) & 0xFFu; cout = (v >> 7) & 1u; }
-      else { r = (v >> 1) | (carry << 7); cout = v & 1u; }
-      if (mode == ACC) a = r; else write(addr, r);
-      p = (zn(p, r) & ~F_C) | cout;
-      break;
-    }
-    case O_JMP: next_pc = addr; break;
-    case O_JSR: {
-      const uint32_t ret = (pc + 2) & 0xFFFFu;
-      push(sp, ret >> 8);
-      push((sp - 1) & 0xFFu, ret & 0xFFu);
-      sp = (sp - 2) & 0xFFu;
-      next_pc = abs_a;
-      break;
-    }
-    case O_RTS: {
-      const uint32_t lo = read(0x100u + ((sp + 1) & 0xFFu));
-      const uint32_t hi = read(0x100u + ((sp + 2) & 0xFFu));
-      sp = (sp + 2) & 0xFFu;
-      next_pc = ((lo | (hi << 8)) + 1) & 0xFFFFu;
-      break;
-    }
-    case O_RTI: {
-      const uint32_t f = read(0x100u + ((sp + 1) & 0xFFu));
-      const uint32_t lo = read(0x100u + ((sp + 2) & 0xFFu));
-      const uint32_t hi = read(0x100u + ((sp + 3) & 0xFFu));
-      sp = (sp + 3) & 0xFFu;
-      p = (f & ~F_B) | F_U;
-      next_pc = lo | (hi << 8);
-      break;
-    }
-    case O_BCC: case O_BCS: case O_BEQ: case O_BMI: case O_BNE: case O_BPL:
-    case O_BVC: case O_BVS: {
-      uint32_t f;
-      bool want;
-      switch (op) {
-        case O_BCC: f = F_C; want = false; break;
-        case O_BCS: f = F_C; want = true; break;
-        case O_BEQ: f = F_Z; want = true; break;
-        case O_BNE: f = F_Z; want = false; break;
-        case O_BMI: f = F_N; want = true; break;
-        case O_BPL: f = F_N; want = false; break;
-        case O_BVC: f = F_V; want = false; break;
-        default: f = F_V; want = true; break;
-      }
-      if (((p & f) != 0) == want) {
-        // rel = b1 as a signed byte
-        next_pc = (next_pc + b1 + (b1 < 0x80u ? 0u : 0xFF00u)) & 0xFFFFu;
-      }
-      break;
-    }
-    case O_BIT:
-      p = (p & ~(F_Z | F_N | F_V)) | ((a & v) == 0 ? F_Z : 0u) | (v & 0xC0u);
-      break;
-    case O_CLC: p &= ~F_C; break;
-    case O_SEC: p |= F_C; break;
-    case O_CLD: p &= ~F_D; break;
-    case O_SED: p |= F_D; break;
-    case O_CLI: p &= ~F_I; break;
-    case O_SEI: p |= F_I; break;
-    case O_CLV: p &= ~F_V; break;
-    default: break;  // BRK, NOP: pc advances by the size only
-  }
-
-  // Bank switching: hotspot on a data/jump access and on the next fetch.
-  if (nbanks > 1) {
-    const int hot = nbanks == 2 ? 0xFF8 : 0xFF6;
-    const uint32_t acc = addr & 0x1FFFu;
-    const int off = static_cast<int>(acc & 0xFFFu) - hot;
-    if (touches && acc >= 0x1000u && off >= 0 && off < nbanks) {
-      bank = static_cast<uint32_t>(off);
-    }
-    const uint32_t facc = next_pc & 0x1FFFu;
-    const int foff = static_cast<int>(facc & 0xFFFu) - hot;
-    if (facc >= 0x1000u && foff >= 0 && foff < nbanks) {
-      bank = static_cast<uint32_t>(foff);
-    }
-  }
-  pc = next_pc;
-  cycles += cyc;
-  line_cycles += static_cast<int>(cyc);
-  if (waddr >= 0) beam(waddr);
-  // RESMP: while set, the missile tracks its player's center.
-  if (center[0] >= 0) pos[2] = mod160(pos[0] + center[0]);
-  if (center[1] >= 0) pos[3] = mod160(pos[1] + center[1]);
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int kMpw, bool kSharedFetch>
+template <int kMpw, bool kBanked>
 __global__ void __launch_bounds__(Geometry<kMpw>::kThreads)
 machine_frame_kernel(const uint2* __restrict__ fetch_g, int nbanks,
-                     const int* __restrict__ decode_g, int* __restrict__ scal,
-                     int* __restrict__ ram_g, int* __restrict__ tia_g,
-                     int* __restrict__ cx_g, int* __restrict__ lines,
-                     int* __restrict__ counts, int n) {
+                     int* __restrict__ scal, int* __restrict__ ram_g,
+                     int* __restrict__ tia_g, int* __restrict__ cx_g,
+                     int* __restrict__ lines, int* __restrict__ counts, int n) {
   using G = Geometry<kMpw>;
   constexpr int M = G::kMachines;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t table_ready;
-  const int table_bytes = kSharedFetch ? nbanks * kBankWords * 8 : 0;
-  uint32_t* decode = reinterpret_cast<uint32_t*>(smem + table_bytes);
-  uint8_t* files = smem + table_bytes + 256 * 4;           // [kFiles][M]
+  const int table_bytes = nbanks * kBankWords * 8;
+  uint8_t* files = smem + table_bytes;                      // [kFiles][M]
   int* stage = reinterpret_cast<int*>(files + kFiles * M);  // [NS][M]
   const int tid = threadIdx.x;
   const int first = blockIdx.x * M;
   const int here = min(M, n - first);
 
   // Start the fetch table on its way, one bulk copy per 4K bank.
-  if constexpr (kSharedFetch) {
-    if (tid == 0) {
-      const uint32_t bar = smem_u32(&table_ready);
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
-                   : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   ::"r"(bar), "r"(table_bytes) : "memory");
-      for (int b = 0; b < nbanks; ++b) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            " [%0], [%1], %2, [%3];"
-            ::"r"(smem_u32(smem + b * kBankWords * 8)),
-            "l"(fetch_g + b * kBankWords), "r"(kBankWords * 8), "r"(bar)
-            : "memory");
-      }
+  const uint32_t bar = smem_u32(&table_ready);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(bar), "r"(table_bytes) : "memory");
+    for (int b = 0; b < nbanks; ++b) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          ::"r"(smem_u32(smem + b * kBankWords * 8)),
+          "l"(fetch_g + b * kBankWords), "r"(kBankWords * 8), "r"(bar)
+          : "memory");
     }
   }
-  // Meanwhile: the decode table and this block's machines, coalesced.
-  for (int k = tid; k < 256; k += G::kThreads) {
-    const int* d = decode_g + 4 * k;  // mode, op, size, cycles
-    decode[k] = static_cast<uint32_t>(d[0]) |
-                (static_cast<uint32_t>(d[1]) << 8) |
-                (static_cast<uint32_t>(d[2]) << 16) |
-                (static_cast<uint32_t>(d[3]) << 24);
-  }
+  // Meanwhile: this block's machines, coalesced.
   for (int i = tid; i < here * 128; i += G::kThreads) {
     files[(kRam + i % 128) * M + i / 128] =
         static_cast<uint8_t>(ram_g[first * 128 + i]);
@@ -762,36 +830,31 @@ machine_frame_kernel(const uint2* __restrict__ fetch_g, int nbanks,
     stage[k * M + m] = scal[k * n + first + m];
   }
   __syncthreads();
-  if constexpr (kSharedFetch) {
-    const uint32_t bar = smem_u32(&table_ready);
-    uint32_t done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n .reg .pred p;\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          " selp.u32 %0, 1, 0, p;\n}"
-          : "=r"(done) : "r"(bar) : "memory");
-    }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar) : "memory");
   }
 
   const int lane = tid & 31;
   const int m = (tid >> 5) * kMpw + lane / G::kLanes;
   if (m < here) {
-    Machine<kMpw, kSharedFetch> mc;
+    Machine<kMpw, kBanked> mc;
     mc.sub = lane % G::kLanes;
     mc.mask = G::kLanes == 32
                   ? 0xFFFFFFFFu
                   : ((1u << G::kLanes) - 1u) << (lane - mc.sub);
     mc.files = files + m;
-    mc.table = kSharedFetch ? reinterpret_cast<const uint2*>(smem) : fetch_g;
-    mc.decode = decode;
+    mc.table = reinterpret_cast<const uint2*>(smem);
     mc.nbanks = nbanks;
-    mc.bank_words = nbanks > 1 ? kBankWords : 0;
     auto s = [&](int k) -> int& { return stage[k * M + m]; };
     mc.a = s(S_A); mc.x = s(S_X); mc.y = s(S_Y); mc.sp = s(S_SP);
     mc.pc = s(S_PC); mc.p = s(S_P); mc.bank = s(S_BANK);
     mc.cycles = static_cast<uint32_t>(s(S_CYCLES));
-    mc.waddr = s(S_WADDR); mc.swcha = s(S_SWCHA); mc.inpt4 = s(S_INPT4);
+    mc.waddr = s(S_WADDR);
     mc.line_cycles = s(S_LINE_CYCLES);
 #pragma unroll
     for (int k = 0; k < 5; ++k) mc.pos[k] = s(S_POSP0 + k);
@@ -800,6 +863,12 @@ machine_frame_kernel(const uint2* __restrict__ fetch_g, int nbanks,
     mc.vsync_before = 0;
     mc.instructions = 0;
     mc.refresh_centers();
+    if (mc.sub == 0) {  // the rest of the TIA read map, and SWCHA
+      for (int k = kZero; k < kTia; ++k) mc.file(k) = 0;
+      mc.file(kInpt4) = static_cast<uint8_t>(s(S_INPT4));
+      mc.file(kC80) = 0x80;
+      mc.file(kSwcha) = static_cast<uint8_t>(s(S_SWCHA));
+    }
     __syncwarp(mc.mask);  // every lane has read the stage before lane 0 writes it
 
     mc.run(lines + static_cast<size_t>(first + m) * kVisible * kNReg);
@@ -850,7 +919,9 @@ __global__ void machine_collisions_kernel(const int* __restrict__ rec,
   r.posp0 = c[R_POSP0]; r.posp1 = c[R_POSP1]; r.posm0 = c[R_POSM0];
   r.posm1 = c[R_POSM1]; r.posbl = c[R_POSBL];
   uint32_t bits = 0;
-  for (int w = 0; w < 5; ++w) bits |= pair_bits(r, w);
+  if (drawn(r) >= 2) {
+    for (int w = 0; w < 5; ++w) bits |= pair_bits(r, w);
+  }
   for (int k = 0; k < 8; ++k) out[i * 8 + k] = static_cast<int>(latch(bits, k));
 }
 
@@ -873,14 +944,13 @@ __global__ void smem_chase_kernel(long long* __restrict__ out, int iters) {
   out[1] = j;
 }
 
-template <int kMpw, bool kSharedFetch>
-int launch(const uint2* fetch, int nbanks, const int* decode, int* scal,
-           int* ram, int* tia, int* cx, int* lines, int* counts, int n,
-           cudaStream_t stream) {
+template <int kMpw, bool kBanked>
+int launch(const uint2* fetch, int nbanks, int* scal, int* ram, int* tia,
+           int* cx, int* lines, int* counts, int n, cudaStream_t stream) {
   using G = Geometry<kMpw>;
-  const size_t smem = (kSharedFetch ? static_cast<size_t>(nbanks) * kBankWords * 8 : 0) +
-                      256 * 4 + static_cast<size_t>(kFiles + NS * 4) * G::kMachines;
-  auto kernel = machine_frame_kernel<kMpw, kSharedFetch>;
+  const size_t smem = static_cast<size_t>(nbanks) * kBankWords * 8 +
+                      static_cast<size_t>(kFiles + NS * 4) * G::kMachines;
+  auto kernel = machine_frame_kernel<kMpw, kBanked>;
   static size_t allowed = 48 * 1024;
   if (smem > allowed) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -890,30 +960,34 @@ int launch(const uint2* fetch, int nbanks, const int* decode, int* scal,
     allowed = smem;
   }
   const int blocks = (n + G::kMachines - 1) / G::kMachines;
-  kernel<<<blocks, G::kThreads, smem, stream>>>(fetch, nbanks, decode, scal,
-                                                ram, tia, cx, lines, counts, n);
+  kernel<<<blocks, G::kThreads, smem, stream>>>(fetch, nbanks, scal, ram, tia,
+                                                cx, lines, counts, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// machines_per_warp: 1, 4, 8 or 32; fetch_shared: the fetch table in
-// shared memory (1) or read through the read-only cache (0).
-extern "C" int machine_frame_launch(const void* fetch, int nbanks,
-                                    const int* decode, int* scal, int* ram,
-                                    int* tia, int* cx, int* lines, int* counts,
-                                    int n, int machines_per_warp,
-                                    int fetch_shared, void* stream) {
+// machines_per_warp: 4, or with K2_ALL_GEOMETRIES defined also 1, 8, 32.
+extern "C" int machine_frame_launch(const void* fetch, int nbanks, int* scal,
+                                    int* ram, int* tia, int* cx, int* lines,
+                                    int* counts, int n, int machines_per_warp,
+                                    void* stream) {
   const uint2* f = static_cast<const uint2*>(fetch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K2_LAUNCH(MPW, SH)                                                  \
-  if (machines_per_warp == MPW && (fetch_shared != 0) == SH)                \
-    return launch<MPW, SH>(f, nbanks, decode, scal, ram, tia, cx, lines,    \
-                           counts, n, s);
-  K2_LAUNCH(1, true) K2_LAUNCH(1, false)
-  K2_LAUNCH(4, true) K2_LAUNCH(4, false)
-  K2_LAUNCH(8, true) K2_LAUNCH(8, false)
-  K2_LAUNCH(32, true) K2_LAUNCH(32, false)
+#define K2_LAUNCH(MPW)                                                      \
+  if (machines_per_warp == MPW) {                                           \
+    return nbanks > 1                                                       \
+               ? launch<MPW, true>(f, nbanks, scal, ram, tia, cx, lines,    \
+                                   counts, n, s)                            \
+               : launch<MPW, false>(f, nbanks, scal, ram, tia, cx, lines,   \
+                                    counts, n, s);                          \
+  }
+  K2_LAUNCH(4)
+#ifdef K2_ALL_GEOMETRIES
+  K2_LAUNCH(1)
+  K2_LAUNCH(8)
+  K2_LAUNCH(32)
+#endif
 #undef K2_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -936,3 +1010,8 @@ extern "C" const char* machine_frame_error_string(int code) {
 }
 
 extern "C" int machine_frame_num_scalars() { return NS; }
+
+// The kernel's copy of the decode table, for the wrapper to check.
+extern "C" void machine_frame_decode(uint32_t* out) {
+  for (int i = 0; i < 256; ++i) out[i] = kDecode[i];
+}

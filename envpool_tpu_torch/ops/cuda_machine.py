@@ -25,6 +25,7 @@ import time
 import torch
 
 from ..envs.atari import machine_kernel
+from ..envs.atari.cpu6502 import CPU_TABLES
 from ..envs.atari.machine_kernel import NS, SCALARS
 from ..envs.atari.tia import NREG, VISIBLE_LINES
 
@@ -37,29 +38,28 @@ _CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 # The per-machine int32 arrays and their shapes after the batch dimension.
 _FILES = {"ram": (128,), "tia": (64,), "cx": (8,), "lines": (VISIBLE_LINES, NREG)}
-# Machines per warp the kernel is compiled for.
+# Machines per warp: the default build has MACHINES_PER_WARP; a build with
+# -DK2_ALL_GEOMETRIES (tools/k2_probe.py's) has all of GEOMETRIES.
 GEOMETRIES = (1, 4, 8, 32)
+MACHINES_PER_WARP = 4
 
 
 class MachineFrame:
     """The K2 wrapper: builds, checks, launches and counts launches.
 
-    ``machines_per_warp`` (one of :data:`GEOMETRIES`) sets how many machines
-    share a warp; ``fetch_shared`` whether the cart's fetch table is copied
-    into shared memory or read through the read-only cache.
+    ``machines_per_warp`` (one of :data:`GEOMETRIES` the build has) sets
+    how many machines share a warp.
     """
 
     def __init__(self, source: pathlib.Path = _SOURCE,
                  build_dir: pathlib.Path = _BUILD_DIR,
                  name: str = "envpool_tpu_torch_machine_frame",
-                 machines_per_warp: int = 1, fetch_shared: bool = True) -> None:
-        if machines_per_warp not in GEOMETRIES:
-            raise ValueError(f"machines_per_warp must be one of {GEOMETRIES}")
+                 extra_cflags: tuple = ()) -> None:
         self.launches = 0
-        self.machines_per_warp = machines_per_warp
-        self.fetch_shared = fetch_shared
+        self.machines_per_warp = MACHINES_PER_WARP
         self._lib = None
         self._source, self._build_dir, self._name = source, build_dir, name
+        self._flags = _CUDA_FLAGS + list(extra_cflags)
 
     def build(self) -> float:
         """Build (or load the cached build of) the kernel; seconds taken."""
@@ -75,7 +75,7 @@ class MachineFrame:
             path = load(
                 name=self._name,
                 sources=[str(self._source)],
-                extra_cuda_cflags=_CUDA_FLAGS,
+                extra_cuda_cflags=self._flags,
                 build_directory=str(self._build_dir),
                 is_python_module=False,
                 verbose=False,
@@ -83,7 +83,7 @@ class MachineFrame:
             lib = ctypes.CDLL(path)
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.machine_frame_launch.argtypes = (
-                [ptr, i32] + [ptr] * 7 + [i32, i32, i32, ptr]
+                [ptr, i32] + [ptr] * 6 + [i32, i32, ptr]
             )
             lib.machine_frame_launch.restype = i32
             lib.machine_collisions_launch.argtypes = [ptr, ptr, i32, ptr]
@@ -95,6 +95,13 @@ class MachineFrame:
             lib.machine_frame_num_scalars.restype = i32
             if lib.machine_frame_num_scalars() != NS:
                 raise RuntimeError("machine_frame.cu disagrees on the state layout")
+            decode = (ctypes.c_uint32 * 256)()
+            lib.machine_frame_decode(decode)
+            mode, op, size, cyc = (t.tolist() for t in CPU_TABLES)
+            want = [m | (o << 8) | (z << 16) | (c << 24)
+                    for m, o, z, c in zip(mode, op, size, cyc)]
+            if list(decode) != want:
+                raise RuntimeError("machine_frame.cu disagrees on the decode table")
             self._lib = lib
         return self._lib
 
@@ -117,14 +124,12 @@ class MachineFrame:
                     f"machine_frame: {k} must be [{n}, {shape}] int32 on {dev}, "
                     f"got {tuple(t.shape)} {t.dtype} on {t.device}"
                 )
-        fetch, dec, nbanks = tables["fetch"], tables["decode"], tables["nbanks"]
+        fetch, nbanks = tables["fetch"], tables["nbanks"]
         if nbanks not in (1, 2, 4) or fetch.dtype != torch.int64 \
                 or tuple(fetch.shape) != (nbanks * 4096,):
             raise ValueError("machine_frame: fetch must be [nbanks * 4096] int64 "
                              "for 1, 2 or 4 banks")
-        if dec.dtype != torch.int32 or tuple(dec.shape) != (256, 4):
-            raise ValueError("machine_frame: decode must be [256, 4] int32")
-        if fetch.device != dev or dec.device != dev:
+        if fetch.device != dev:
             raise ValueError("machine_frame: tables and state on different devices")
         if counts is not None and (counts.dtype != torch.int32 or counts.device != dev
                                    or tuple(counts.shape) != (n,)
@@ -153,7 +158,6 @@ class MachineFrame:
         scal = torch.stack([g[k].to(torch.int32) for k in SCALARS])
         files = {k: g[k].contiguous().clone() for k in _FILES}
         fetch = tables["fetch"].contiguous()
-        dec = tables["decode"].contiguous()
         if fetch.data_ptr() % 16:
             raise ValueError("machine_frame: the fetch table must be 16-byte aligned")
         out = dict(g)
@@ -161,12 +165,11 @@ class MachineFrame:
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
                 rc = lib.machine_frame_launch(
-                    fetch.data_ptr(), tables["nbanks"], dec.data_ptr(),
-                    scal.data_ptr(), files["ram"].data_ptr(),
-                    files["tia"].data_ptr(), files["cx"].data_ptr(),
-                    files["lines"].data_ptr(),
+                    fetch.data_ptr(), tables["nbanks"], scal.data_ptr(),
+                    files["ram"].data_ptr(), files["tia"].data_ptr(),
+                    files["cx"].data_ptr(), files["lines"].data_ptr(),
                     None if counts is None else counts.data_ptr(), n,
-                    self.machines_per_warp, int(self.fetch_shared), stream,
+                    self.machines_per_warp, stream,
                 )
             self._raise(rc, "machine_frame")
             self.launches += 1

@@ -2,14 +2,16 @@
 
 Run from the repository root: ``python -m envpool_tpu_torch.tools.k2_probe``.
 It prints the frame kernel's ``-Xptxas -v`` report (and writes its SASS
-to ``chiprun_out/k2_probe/``), holds every geometry of K2 (machines per
-warp x fetch table in shared memory or read-only cache) against the plain
-frame on the pong, F6 and a random cart, measures the latency of one
-dependent shared-memory load, and times every geometry on the pong cart
-at ``--n`` machines with lanes that differ and lanes in lockstep (every
-machine gets the same joystick inputs), in turns (A B ... B A), then at
-``--wide`` machines.  It exits non-zero when no CUDA device is present.
-"""
+to ``chiprun_out/k2_probe/``), builds K2 with every geometry (machines
+per warp, ``GEOMETRIES``) and holds each against the plain frame on the
+pong, F6 and a random cart, measures the latency of one dependent
+shared-memory load, and times every geometry on the pong cart at ``--n``
+machines with lanes that differ and lanes in lockstep (every machine gets
+the same joystick inputs), in turns (A B ... B A), then at twice ``--n``
+and at ``--wide`` machines.  ``--phases`` instead prints where one frame's
+SM clocks go, from a copy of the kernel that reads ``clock64`` around each
+phase of every instruction.  It exits non-zero when no CUDA device is
+present."""
 
 from __future__ import annotations
 
@@ -107,15 +109,85 @@ def smem_latency(kernel, iters: int = 1 << 20) -> tuple[float, float]:
     return int(out[0]) / iters, start.elapsed_time(end) * 1e6 / iters
 
 
-def geometries():
-    from envpool_tpu_torch.ops.cuda_machine import GEOMETRIES
+# Text edits that make a copy of the kernel time its phases with clock64:
+# per machine, [n, 8] int64 through the counts pointer: SM clocks of the
+# phases named in PHASES, then the instruction count.
+PHASE_EDITS = [
+    ("#include <stdint.h>\n", "#include <stdint.h>\n#define K2_TICK(k) do { const long long "
+     "t_ = clock64(); phase[k] += t_ - tick; tick = t_; } while (0)\n"),
+    ("  uint32_t instructions;\n", "  uint32_t instructions;\n  long long tick, phase[6];\n"),
+    ("    const uint32_t b1 = (w >> 8) & 0xFFu, b2 = (w >> 16) & 0xFFu;\n",
+     "    const uint32_t b1 = (w >> 8) & 0xFFu, b2 = (w >> 16) & 0xFFu;\n    K2_TICK(0);\n"),
+    ("    auto store = [&](uint32_t value) {", "    K2_TICK(1);\n    auto store = [&](uint32_t value) {"),
+    ("    // Bank switching: hotspot on a data/jump access and on the next fetch.\n",
+     "    K2_TICK(2);\n    // Bank switching: hotspot on a data/jump access and on the next fetch.\n"),
+    ("    }\n#undef K2_OP16", "    }\n    K2_TICK(3);\n#undef K2_OP16"),
+    ("      if (instructions > 0) center_missiles();\n",
+     "      if (instructions > 0) center_missiles();\n      K2_TICK(4);\n"),
+    ("      if (vis >= 0 && vis < kVisible) close_visible(lines + vis * kNReg);\n",
+     "      if (vis >= 0 && vis < kVisible) close_visible(lines + vis * kNReg);\n"
+     "      K2_TICK(5);\n"),
+    ("    scanline = 0;\n    wrapped = 0;\n",
+     "    scanline = 0;\n    wrapped = 0;\n    tick = clock64();\n"
+     "    for (int k = 0; k < 6; ++k) phase[k] = 0;\n"),
+    ("      if (counts != nullptr) counts[first + m] = static_cast<int>(mc.instructions);",
+     "      if (counts != nullptr) {\n"
+     "        long long* out = reinterpret_cast<long long*>(counts) + (first + m) * 8;\n"
+     "        for (int k = 0; k < 6; ++k) out[k] = mc.phase[k];\n"
+     "        out[6] = mc.instructions;\n      }"),
+]
+PHASES = ("loop+fetch", "dispatch+address+operand", "op+TIA", "bank+join",
+          "line end", "line close")
 
-    return [(mpw, shared) for mpw in GEOMETRIES for shared in (True, False)]
+
+def phase_clocks(rom, n: int) -> None:
+    """Print where one steady frame's SM clocks go, per machine, from a
+    copy of the kernel with PHASE_EDITS, at the default geometry."""
+    import torch
+
+    from envpool_tpu_torch.envs.atari import machine_kernel
+    from envpool_tpu_torch.ops.cuda_machine import MachineFrame
+
+    text = _SOURCE.read_text()
+    for old, new in PHASE_EDITS:
+        if old not in text:
+            raise RuntimeError(f"phase edit anchor not found: {old!r}")
+        text = text.replace(old, new)
+    src = _PKG / "_build" / "k2_phases" / "machine_frame.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    k = MachineFrame(src, src.parent, "k2_phases")
+    tables = machine_kernel.build_tables(rom, "cuda")
+    g = machines(rom, n)
+    for _ in range(6):
+        g = k(g, tables)
+    buf = torch.zeros(n * 16, dtype=torch.int32, device="cuda")
+    k(g, tables, buf[:n])  # the copy writes [n, 8] int64 from this pointer
+    torch.cuda.synchronize()
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+
+    ms_phases, _ = time_frames(k, g, tables, 10)
+    ms_plain, _ = time_frames(machine_frame, g, tables, 10)
+    print(f"frame 7 at {n} machines: {ms_phases:.4f} ms with clock64 phases, "
+          f"{ms_plain:.4f} ms without")
+    ph = buf.view(torch.int64).view(n, 8).double()
+    per = ph[:, :6].mean(0)
+    ins = float(ph[:, 6].mean())
+    total = float(per.sum())
+    print(f"phase clocks at {n} machines ({k.machines_per_warp}/warp, clock64 in every "
+          f"instruction): {total:,.0f} SM clocks per machine-frame over "
+          f"{ins:.0f} instructions = {total / ins:.0f} per instruction")
+    for name_, c in zip(PHASES, per.tolist()):
+        print(f"  {name_:>18}: {c:12,.0f} clocks = {c / ins:7.1f} per instruction "
+              f"({c / total:.3f})")
 
 
-def name(geo) -> str:
-    mpw, shared = geo
-    return f"{mpw}/warp {'shared' if shared else 'ldg'}"
+def sweep_kernel():
+    """K2 built with every geometry (-DK2_ALL_GEOMETRIES)."""
+    from envpool_tpu_torch.ops.cuda_machine import MachineFrame
+
+    return MachineFrame(build_dir=_PKG / "_build" / "k2_sweep", name="k2_sweep",
+                        extra_cflags=("-DK2_ALL_GEOMETRIES",))
 
 
 def main(argv=None) -> int:
@@ -125,17 +197,23 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--wide", type=int, default=4096)
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--phases", action="store_true",
+                    help="only the clock64 phase breakdown of one frame")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k2_probe: no CUDA device", file=sys.stderr)
         return 1
     from envpool_tpu_torch.envs.atari import machine_kernel
-    from envpool_tpu_torch.ops.cuda_machine import machine_frame as k2
+    from envpool_tpu_torch.ops.cuda_machine import GEOMETRIES, MACHINES_PER_WARP
 
     print(f"device: {torch.cuda.get_device_name(0)}; {smi('name,power.limit')}")
-    print(f"ptxas:\n{ptxas_report(sass_dir=_OUT)}")
-    print(f"K2 build: {k2.build():.1f} s")
     mc = carts()
+    if args.phases:
+        phase_clocks(mc.pong_rom(), args.n)
+        return 0
+    print(f"ptxas:\n{ptxas_report(sass_dir=_OUT)}")
+    k2 = sweep_kernel()
+    print(f"K2 build with every geometry: {k2.build():.1f} s")
 
     # Every geometry against the plain frame.
     cases = [("pong", mc.pong_rom(), 257, 3), ("f6", mc.f6_rom(), 20, 2),
@@ -148,8 +226,8 @@ def main(argv=None) -> int:
         for _ in range(frames):
             plain.append(machine_kernel.frame(plain[-1], tables, want))
             plain_counts.append(want.clone())
-        for geo in geometries():
-            k2.machines_per_warp, k2.fetch_shared = geo
+        for geo in GEOMETRIES:
+            k2.machines_per_warp = geo
             g = plain[0]
             got = torch.zeros(n, dtype=torch.int32, device="cuda")
             for f in range(frames):
@@ -157,7 +235,7 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 bad = [k for k in plain[f + 1] if not torch.equal(g[k], plain[f + 1][k])]
                 if bad or not torch.equal(got, plain_counts[f]):
-                    raise RuntimeError(f"{name(geo)} differs from plain on {cart} "
+                    raise RuntimeError(f"{geo}/warp differs from plain on {cart} "
                                        f"frame {f}: {bad or 'counts'}")
         print(f"K2 vs plain [{cart}, {n} lanes x {frames} frames]: every geometry "
               f"equal in every leaf and instruction count "
@@ -170,11 +248,11 @@ def main(argv=None) -> int:
     rom = mc.pong_rom()
     tables = machine_kernel.build_tables(rom, "cuda")
     times: dict = {}
-    for n, modes in ((args.n, (True, False)), (args.wide, (True,))):
+    for n, modes in ((args.n, (True, False)), (2 * args.n, (True,)), (args.wide, (True,))):
         warm = {}
         for differ in modes:
             g = machines(rom, n, differ)
-            k2.machines_per_warp, k2.fetch_shared = (1, True)
+            k2.machines_per_warp = MACHINES_PER_WARP
             for _ in range(6):  # as bench.py: steady frames after 6
                 g = k2(g, tables)
             counts = torch.zeros(n, dtype=torch.int32, device="cuda")
@@ -183,15 +261,14 @@ def main(argv=None) -> int:
             print(f"{n} machines, lanes {'differ' if differ else 'lockstep'}: "
                   f"instructions per machine in frame 7: max {int(counts.max())}, "
                   f"mean {float(counts.float().mean()):.1f}")
-        order = geometries() + geometries()[::-1]
-        for geo in order:
-            k2.machines_per_warp, k2.fetch_shared = geo
+        for geo in GEOMETRIES + GEOMETRIES[::-1]:
+            k2.machines_per_warp = geo
             for differ in modes:
                 ms, _ = time_frames(k2, warm[differ], tables, args.frames)
                 times.setdefault((n, geo, differ), []).append(ms)
         print(f"SM clock after the {n}-machine runs: {smi('clocks.sm')}")
     for (n, geo, differ), ms in times.items():
-        print(f"timing {n} machines {name(geo):>14} lanes "
+        print(f"timing {n} machines {geo:2d}/warp lanes "
               f"{'differ' if differ else 'lockstep'}: "
               + ", ".join(f"{t:.4f}" for t in ms) + " ms/frame")
     print("k2_probe: ok")

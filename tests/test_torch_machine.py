@@ -118,18 +118,35 @@ def test_diverging_lanes_match_jax_one_lane_at_a_time():
 
 def test_wrapper_runs_plain_version_on_cpu():
     """On CPU tensors K2's wrapper is the plain frame and launches nothing;
-    it refuses a state of the wrong dtype."""
+    it fills the instruction counts it is given, and refuses a state or a
+    counts buffer of the wrong dtype."""
     rom = carts.pong_rom()
     g = tia.attach_tia(cpu6502.make_machine(rom, 2, "cpu"))
     tables = machine_kernel.build_tables(rom, "cpu")
     before = machine_frame.launches
-    got = machine_frame(g, tables)
+    counts = torch.zeros(2, dtype=torch.int32)
+    got = machine_frame(g, tables, counts)
     want = machine_kernel.frame(g, tables)
     for k in want:
         assert torch.equal(got[k], want[k]), k
     assert machine_frame.launches == before
+    assert int(counts.min()) > 0
     with pytest.raises(ValueError, match="ram"):
         machine_frame({**g, "ram": g["ram"].to(torch.int64)}, tables)
+    with pytest.raises(ValueError, match="counts"):
+        machine_frame(g, tables, counts.to(torch.int64))
+
+
+@pytest.mark.parametrize("cart", ["pong", "f8", "f6", "random0"])
+def test_fetch_words_are_jax_meta_rows(cart):
+    """K2's per-offset fetch word, read as little-endian bytes, is the JAX
+    package's meta row (b0, b1, b2, mode, op, size, cycles, 0)."""
+    rom = CARTS[cart]()
+    want = jmk.build_tables(rom)["meta"].reshape(-1, 8)
+    fetch = machine_kernel.build_tables(rom, "cpu")["fetch"]
+    assert fetch.dtype == torch.int64 and fetch.shape == (want.shape[0],)
+    got = fetch.numpy().view(np.uint8).reshape(-1, 8)
+    np.testing.assert_array_equal(got, want.astype(np.uint8))
 
 
 def _random_records(seed, n):
@@ -177,11 +194,15 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cart,n", [
-    ("pong", 32), ("pong", 100), ("f8", 4), ("f6", 4), ("random0", 4),
+    ("pong", 1), ("pong", 9), ("pong", 32), ("pong", 100), ("pong", 257),
+    ("f8", 4), ("f8", 20), ("f6", 4), ("f6", 20), ("random0", 4),
+    ("random0", 20),
 ])
 def test_k2_matches_plain_on_card(cuda_device, cart, n):
-    """K2 against the plain version over three frames; 100 lanes spread
-    over four blocks of 32, the last one partly full."""
+    """K2 against the plain version over three frames, every leaf and each
+    machine's instruction count, with lanes that differ.  K2 runs blocks of
+    8 machines: 9, 20, 100 and 257 lanes span several blocks and leave the
+    last one partly full."""
     rom = CARTS[cart]()
     swcha, inpt4 = carts.lane_inputs(n, 1)
     tables = machine_kernel.build_tables(rom, cuda_device)
@@ -189,13 +210,16 @@ def test_k2_matches_plain_on_card(cuda_device, cart, n):
     g.update(swcha=torch.as_tensor(swcha, device=cuda_device),
              inpt4=torch.as_tensor(inpt4, device=cuda_device))
     plain = g
+    got, want = (torch.zeros(n, dtype=torch.int32, device=cuda_device)
+                 for _ in range(2))
     before = machine_frame.launches
     for f in range(3):
-        g = machine_frame(g, tables)
-        plain = machine_kernel.frame(plain, tables)
+        g = machine_frame(g, tables, got)
+        plain = machine_kernel.frame(plain, tables, want)
         torch.cuda.synchronize()
         for k in plain:
             assert torch.equal(g[k], plain[k]), f"frame {f}: {k}"
+        assert torch.equal(got, want), f"frame {f}: instruction counts"
     assert machine_frame.launches == before + 3
 
 
