@@ -10,8 +10,10 @@ PongLite-v5 at 2048 envs and for Machine2600-v0 (the 6502+TIA emulator on
 the repository's hand-built pong cart) at 1024 envs, it drives the
 gymnasium, dm and functional entry points, checks the card against the
 CPU port, profiles engine steps and times a rollout.  It also times K2
-alone (frames/s and emulated 6502 cycles/s).  It exits non-zero on any
-failure, and when no CUDA device is present.
+alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
+holds it to its chain bound: each frame's most emulated instructions on
+one machine times one dependent shared-memory load, measured on the card.
+It exits non-zero on any failure, and when no CUDA device is present.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the ``kernels`` JSON record.
@@ -22,7 +24,6 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -372,28 +373,6 @@ def phase_profile(device: str, task: str, n: int, steps: int, n_actions: int,
 # ---------------------------------------------------------------------------
 
 
-def _carts():
-    """The repository's hand-built carts (tests/machine_carts.py)."""
-    sys.path.insert(0, str(REPO / "tests"))
-    import machine_carts
-
-    return machine_carts
-
-
-def _machines(rom, n: int, device, seed: int, differ: bool = True) -> dict:
-    import torch
-
-    from envpool_tpu_torch.envs.atari import cpu6502, tia
-
-    swcha, inpt4 = _carts().lane_inputs(n, seed)
-    if not differ:
-        swcha, inpt4 = swcha[:1].repeat(n), inpt4[:1].repeat(n)
-    g = tia.attach_tia(cpu6502.make_machine(rom, n, device))
-    g.update(swcha=torch.as_tensor(swcha, device=device),
-             inpt4=torch.as_tensor(inpt4, device=device))
-    return g
-
-
 def _k2_vs_plain(got: dict, plain: dict, where: str) -> int:
     """Every state leaf and the lines buffer of K2's frame bit-equal to the
     plain frame's; returns the largest absolute difference over them."""
@@ -416,18 +395,19 @@ def phase_k2_vs_plain(device: str) -> int:
 
     from envpool_tpu_torch.envs.atari import machine_kernel
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
+    from envpool_tpu_torch.tools.k2_probe import carts, machines
 
-    carts = _carts()
+    mc = carts()
     cases = [  # (name, rom, lanes, frames, lanes get different inputs)
-        ("pong", carts.pong_rom(), 32, 3, True),
-        ("f8", carts.f8_rom(), 8, 2, True),
-        ("f6", carts.f6_rom(), 8, 2, True),
-        ("random0", carts.random_rom(0), 8, 1, False),
+        ("pong", mc.pong_rom(), 32, 3, True),
+        ("f8", mc.f8_rom(), 20, 2, True),
+        ("f6", mc.f6_rom(), 20, 2, True),
+        ("random0", mc.random_rom(0), 20, 1, False),
     ]
     max_err = 0
     for name, rom, n, frames, differ in cases:
         tables = machine_kernel.build_tables(rom, device)
-        got = plain = _machines(rom, n, device, SEED, differ)
+        got = plain = machines(rom, n, differ, device)
         for f in range(frames):
             got = machine_frame(got, tables)
             plain = machine_kernel.frame(plain, tables)
@@ -449,72 +429,101 @@ def phase_k2_vs_plain(device: str) -> int:
     return max(max_err, int((got - want).abs().max()))
 
 
-def phase_k2_timing(device: str, n: int) -> dict:
-    """K2 frames/s and emulated 6502 cycles/s on the pong cart at ``n``
-    machines in steady full frames (after 6 warm-up frames, as bench.py
-    does), and the plain version's time for one frame.  K2's next frame
-    of the same state is then held against that plain frame."""
+def _k2_steady(device: str, n: int, frames: int, tables, rom):
+    """K2 over ``frames`` steady pong frames at ``n`` machines (after 6
+    warm-up frames, as bench.py does): ms per frame, the emulated cycles,
+    each frame's largest instruction count, and the last state."""
     import torch
 
-    from envpool_tpu_torch.envs.atari import machine_kernel
-    from envpool_tpu_torch.ops.cuda_machine import NS, machine_frame
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+    from envpool_tpu_torch.tools.k2_probe import machines
 
-    rom = _carts().pong_rom()
-    tables = machine_kernel.build_tables(rom, device)
-    g = _machines(rom, n, device, SEED)
+    g = machines(rom, n, device=device)
     for _ in range(6):
         g = machine_frame(g, tables)
-    frames = 20
-    state = {"g": g}
-
-    def run():
-        state["g"] = machine_frame(state["g"], tables)
-
-    c0 = state["g"]["cycles"].to(torch.int64)
+    counts = torch.zeros((frames, n), dtype=torch.int32, device=device)
+    c0 = g["cycles"].to(torch.int64)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(frames):
-        run()
+    for f in range(frames):
+        g = machine_frame(g, tables, counts[f])
     end.record()
     torch.cuda.synchronize()
-    k2_ms = start.elapsed_time(end) / frames
-    dcyc = int(((state["g"]["cycles"].to(torch.int64) - c0) % 2**32).sum())
-    cyc_per_s = dcyc / (k2_ms * frames / 1e3)
+    ms = start.elapsed_time(end) / frames
+    dcyc = int(((g["cycles"].to(torch.int64) - c0) % 2**32).sum())
+    return ms, dcyc, counts.max(1).values.to(torch.float64), g
+
+
+def phase_k2_timing(device: str, n: int, wide: int) -> dict:
+    """K2 frames/s and emulated 6502 cycles/s on the pong cart at ``n``
+    machines in 20 steady frames, the plain version's time for one frame,
+    and K2's two bounds: bytes, and the chain of dependent emulated
+    instructions (each frame's most instructions on one machine x one
+    dependent shared-memory load, measured here).  K2's next frame of the
+    same state is then held against that plain frame, instruction counts
+    included.  The same timing runs at ``wide`` machines."""
+    import torch
+
+    from envpool_tpu_torch.envs.atari import machine_kernel
+    from envpool_tpu_torch.ops.cuda_machine import NS, machine_frame
+    from envpool_tpu_torch.tools.k2_probe import carts, smem_latency, smi
+
+    rom = carts().pong_rom()
+    tables = machine_kernel.build_tables(rom, device)
+    frames = 20
+    clocks, load_ns = smem_latency(machine_frame)
+    sm_clock = smi("clocks.sm")
+    print(f"dependent shared-memory load (one-thread pointer chase): "
+          f"{clocks:.2f} SM clocks = {load_ns:.3f} ns at SM clock {sm_clock}")
+    rows = {}
+    for width in (n, wide):
+        ms, dcyc, most, g = _k2_steady(device, width, frames, tables, rom)
+        chain_ms = float(most.mean()) * load_ns * 1e-6
+        rows[width] = ms, chain_ms, g
+        print(
+            f"K2 at {width} machines, pong cart, {frames} steady frames: {ms:.4f} "
+            f"ms/frame = {width / ms * 1e3:,.0f} machine-frames/s; {dcyc} emulated "
+            f"6502 cycles = {dcyc / (ms * frames / 1e3):,.0f} cycles/s; most "
+            f"instructions on one machine {float(most.mean()):.1f} per frame; chain "
+            f"bound {chain_ms:.5f} ms = {chain_ms / ms:.4f} of K2's time"
+        )
+    k2_ms, chain_ms, g = rows[n]
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    want = torch.zeros(n, dtype=torch.int32, device=device)
     t0.record()
-    plain = machine_kernel.frame(state["g"], tables)
+    plain = machine_kernel.frame(g, tables, want)
     t1.record()
     torch.cuda.synchronize()
     plain_ms = t0.elapsed_time(t1)
-    got = machine_frame(state["g"], tables)
+    got = torch.zeros_like(want)
+    k2 = machine_frame(g, tables, got)
     torch.cuda.synchronize()
-    max_err = _k2_vs_plain(got, plain, f"pong, {n} machines, steady frame")
+    max_err = _k2_vs_plain(k2, plain, f"pong, {n} machines, steady frame")
+    _check(torch.equal(got, want), "K2's instruction counts differ from plain")
     print(f"K2 vs plain [pong, {n} lanes, frame 27]: 0 mismatched leaves of "
-          f"{len(plain)}")
+          f"{len(plain)}, instruction counts equal; plain version {plain_ms:.1f} ms "
+          f"for one frame")
     # Bytes the frame must move: every state leaf in and out, the line
-    # records it writes, and the cart and decode table once.
+    # records it writes, and the cart's fetch table once.
     per_machine = (NS + 128 + 64 + 8) * 4 * 2 + 192 * 24 * 4
-    nbytes = n * per_machine + rom.size + 256 * 4 * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = n * per_machine + tables["fetch"].numel() * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(
-        f"K2 at {n} machines, pong cart, {frames} steady frames: {k2_ms:.4f} ms/frame "
-        f"= {n / k2_ms * 1e3:,.0f} machine-frames/s; {dcyc} emulated 6502 cycles "
-        f"= {cyc_per_s:,.0f} cycles/s; plain version {plain_ms:.1f} ms for one frame"
-    )
-    print(
-        f"K2 bound: {nbytes / 1e6:.2f} MB / 3.35 TB/s = {bound_ms:.5f} ms "
-        "(no published integer peak for the operations side; the serial "
-        "chain of emulated instructions bounds it)"
+        f"K2 bounds at {n} machines: bytes {nbytes / 1e6:.2f} MB / 3.35 TB/s = "
+        f"{bytes_ms:.5f} ms; operations: the chain of dependent emulated "
+        f"instructions, {chain_ms:.5f} ms (each frame's most instructions on one "
+        f"machine x {load_ns:.3f} ns); K2 reaches {chain_ms / k2_ms:.4f} of the "
+        f"chain bound"
     )
     return {
         "max_abs_err": max_err,
         "ms": k2_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
+        "bound_ms": max(bytes_ms, chain_ms),
+        "bound_by": "operations" if chain_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }
 
@@ -596,12 +605,11 @@ def main() -> int:
     t_start = time.perf_counter()
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from envpool_tpu_torch.tools.k2_probe import carts, smi
+
+    card = smi("name,power.limit")
     print(f"device: {kind}")
-    print(smi)
+    print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -626,14 +634,14 @@ def main() -> int:
     print(
         f"PongLite-v5 functional rollout, {N_ENVS} envs x 128 steps: "
         f"{steps_per_s:,.0f} env-steps/s = {steps_per_s * 4:,.0f} frames/s "
-        f"(frame_skip 4) on {smi}"
+        f"(frame_skip 4) on {card}"
     )
 
     # -- Machine2600-v0 and K2 ------------------------------------------------
     k2_err = phase_k2_vs_plain(device)
-    k2_stats = phase_k2_timing(device, N_MACHINES)
+    k2_stats = phase_k2_timing(device, N_MACHINES, 4 * N_MACHINES)
     k2_stats["max_abs_err"] = max(k2_err, k2_stats["max_abs_err"])
-    rom_path = _write_cart(_carts().pong_rom())
+    rom_path = _write_cart(carts().pong_rom())
     machine = dict(rom_path=rom_path, **MACHINE)
     machine_frame.launches = 0
     fused_pool_resize.launches = 0
@@ -647,9 +655,9 @@ def main() -> int:
     _check(k2_per_step == 35, f"K2 launches per env step {k2_per_step}, expected 35")
     print(f"K2 launches on the Machine2600 path: {k2_launches} "
           f"({k2_per_step:g} per env step); K1 launches there: {k1_machine}")
-    # 40 envs: two blocks of K2, the second partly full.  Env 0 holds DOWN
-    # and loses its life.
-    phase_card_vs_cpu(device, "Machine2600-v0", 40, 12, 18, hold=5, frame_skip=1,
+    # 44 envs: K2 runs blocks of 8 machines (two warps of 4), so five full
+    # blocks and a sixth with 4.  Env 0 holds DOWN and loses its life.
+    phase_card_vs_cpu(device, "Machine2600-v0", 44, 12, 18, hold=5, frame_skip=1,
                       noop_max=1, use_fire_reset=False, **machine)
     phase_profile(device, "Machine2600-v0", N_MACHINES, 2, 18, warmup=1,
                   kernel="machine_frame_kernel", **machine)
@@ -659,7 +667,7 @@ def main() -> int:
     print(
         f"Machine2600-v0 functional rollout, {N_MACHINES} envs x 16 steps: "
         f"{machine_steps:,.1f} env-steps/s = {machine_steps * 35:,.0f} emulated "
-        f"frames/s (35 per env step) on {smi}"
+        f"frames/s (35 per env step) on {card}"
     )
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")

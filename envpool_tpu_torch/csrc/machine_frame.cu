@@ -13,7 +13,47 @@
 // cycles - 76).  The frame ends after the slot in which VSYNC wrapped the
 // beam or scanline reached 262.
 //
+// WHAT BOUNDS IT
+//
+// A machine's frame is one serial chain of emulated instructions (~4,000
+// on the pong cart), and each needs at least one shared-memory load whose
+// address depends on the instruction before: the fetch at the new PC.  The
+// frame ends when the slowest machine does, so the floor is (most
+// instructions on one machine) x (one dependent shared-memory load, ~29 SM
+// clocks), which chip_smoke.py measures with smem_chase_kernel.  The bytes
+// the frame moves (~21 MB at 1024 machines) take a tenth of that.  K2
+// spends ~500 SM clocks per emulated instruction instead: the handler's
+// own dependent instructions and the compare-and-branch tree that picks
+// it (nvcc emits no indirect jump for the switch; tools/k2_probe.py
+// --phases splits the clocks).  At 1024 machines the card holds only ~2
+// warps per SM, so nothing hides that latency.  A 6502 has no matrix
+// products: the tensor cores have no part here.
+//
 // DESIGN
+//
+// - Geometry: kMpw machines share a warp, kLanes = 32 / kMpw lanes each,
+//   in blocks of 8 machines.  The default, 4 per warp, was the fastest of
+//   1, 4, 8 and 32 at 1024-4096 machines (tools/k2_probe.py): one machine
+//   per warp never diverges, but its 32 lanes issue one chain, and at 4096
+//   machines the card runs out of issue slots; more per warp diverge where
+//   their programs do.  The lanes of a machine
+//   share the parallel work: state load and store (coalesced, block-wide),
+//   the record row, the five collision words, HMOVE's five motions, the
+//   clears of HMCLR and CXCLR.  The 6502 chain runs uniform in the group.
+// - Fetch: one 64-bit word per cart offset, the JAX meta row (b0, b1, b2,
+//   mode, op, size, cycles, 0), built once per cart by the wrapper
+//   (machine_kernel.build_tables).  The whole table (32/64/128 KB for
+//   4K/F8/F6) goes into shared memory by cp.async.bulk while the block
+//   stages its machines.  An instruction costs one load; the bus path is
+//   kept only where the JAX rule asks (PC below $1000 or in a window's last
+//   two bytes), and a bus read of the cart takes a word's low byte.
+// - Dispatch: one handler per opcode, its mode, op, size and cycles
+//   resolved at compile time.
+// - Registers: CPU registers, the beam, the object positions (indexed by
+//   constants only), RESMP and the NUSIZ scale of both players (refreshed
+//   on writes to NUSIZ0/1 and RESMP0/1).  No stack, no spills.
+// - Shared memory besides the table: each machine's RAM, TIA read map,
+//   SWCHA and register file as bytes, machine-minor, and the scalars.
 //
 // Arithmetic is unsigned where it may wrap (cycles), as JAX lets int32
 // wrap; shifts never take negative amounts.

@@ -1,29 +1,33 @@
 """What K2's design rests on, measured on one CUDA card.
 
 Run from the repository root: ``python -m envpool_tpu_torch.tools.k2_probe``.
-It prints the frame kernel's ``-Xptxas -v`` report (and writes its SASS
-to ``chiprun_out/k2_probe/``), builds K2 with every geometry (machines
-per warp, ``GEOMETRIES``) and holds each against the plain frame on the
-pong, F6 and a random cart, measures the latency of one dependent
-shared-memory load, and times every geometry on the pong cart at ``--n``
-machines with lanes that differ and lanes in lockstep (every machine gets
-the same joystick inputs), in turns (A B ... B A), then at twice ``--n``
-and at ``--wide`` machines.  ``--phases`` instead prints where one frame's
-SM clocks go, from a copy of the kernel that reads ``clock64`` around each
-phase of every instruction.  It exits non-zero when no CUDA device is
-present."""
+It prints the frame kernel's ``-Xptxas -v`` report and code size (and
+writes its SASS to ``envpool_tpu_torch/_build/k2_probe/``), builds K2
+with every geometry (machines per warp, ``GEOMETRIES``) and holds each
+against the plain frame on the pong, F8, F6 and a random cart, measures
+the latency of one dependent shared-memory load, and times every
+geometry on the pong cart at ``--n`` machines with lanes that differ and
+lanes in lockstep (every machine gets the same joystick inputs), in
+turns (A B ... B A), then at twice ``--n`` and at ``--wide`` machines.
+``--against SOURCE`` does all of that for a second ``machine_frame.cu``
+too, in the same turns, so that two versions are compared within one
+run. ``--phases`` instead prints where one frame's SM clocks go, from a
+copy of the kernel that reads ``clock64`` around each phase of every
+instruction. It exits non-zero when no CUDA device is present."""
 
 from __future__ import annotations
 
 import argparse
 import pathlib
+import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _REPO = _PKG.parent
 _SOURCE = _PKG / "csrc" / "machine_frame.cu"
-_OUT = _REPO / "chiprun_out" / "k2_probe"
+_OUT = _PKG / "_build" / "k2_probe"
 SEED = 20260
 
 
@@ -34,13 +38,15 @@ def smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def ptxas_report(src: pathlib.Path = _SOURCE, sass_dir: pathlib.Path | None = None) -> str:
-    """``nvcc -Xptxas -v`` lines of every kernel in ``src``; with
-    ``sass_dir``, its SASS (``cuobjdump -sass``) is written there."""
+def ptxas_report(src: pathlib.Path = _SOURCE, sass_dir: pathlib.Path | None = None,
+                 tag: str = "machine_frame") -> str:
+    """``nvcc -Xptxas -v`` lines of every kernel in ``src`` (the default
+    build), and each kernel's code size from its SASS; with ``sass_dir``,
+    the SASS (``cuobjdump -sass``) is written there as ``<tag>.sass``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     bin_dir = pathlib.Path(CUDA_HOME or "/usr/local/cuda") / "bin"
-    out = (sass_dir or _OUT) / "machine_frame.cubin"
+    out = _OUT / f"{tag}.cubin"
     out.parent.mkdir(parents=True, exist_ok=True)
     res = subprocess.run(
         [str(bin_dir / "nvcc"), "-O3", "-gencode=arch=compute_90a,code=sm_90a",
@@ -49,13 +55,16 @@ def ptxas_report(src: pathlib.Path = _SOURCE, sass_dir: pathlib.Path | None = No
     )
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+    sass = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(out)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
     if sass_dir is not None:
-        sass = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(out)],
-                              capture_output=True, text=True, timeout=300)
-        (sass_dir / "machine_frame.sass").write_text(sass.stdout)
-    return "\n".join(line for line in res.stderr.splitlines()
-                     if "registers" in line or "stack frame" in line
-                     or "Compiling entry" in line)
+        (sass_dir / f"{tag}.sass").write_text(sass)
+    lines = [line for line in res.stderr.splitlines()
+             if "registers" in line or "stack frame" in line or "Compiling entry" in line]
+    for fn in sass.split("Function : ")[1:]:
+        n = sum(1 for line in fn.splitlines() if re.match(r"\s+/\*[0-9a-f]{4,}\*/", line))
+        lines.append(f"code size {fn.split()[0]}: {n} SASS instructions = {16 * n:,} B")
+    return "\n".join(lines)
 
 
 def carts():
@@ -166,6 +175,7 @@ def phase_clocks(rom, n: int) -> None:
     torch.cuda.synchronize()
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
 
+    machine_frame(g, tables)  # load and warm the default build outside the timing
     ms_phases, _ = time_frames(k, g, tables, 10)
     ms_plain, _ = time_frames(machine_frame, g, tables, 10)
     print(f"frame 7 at {n} machines: {ms_phases:.4f} ms with clock64 phases, "
@@ -182,12 +192,47 @@ def phase_clocks(rom, n: int) -> None:
               f"({c / total:.3f})")
 
 
-def sweep_kernel():
-    """K2 built with every geometry (-DK2_ALL_GEOMETRIES)."""
+def sweep_kernel(source: pathlib.Path = _SOURCE, name: str = "k2_sweep"):
+    """K2 built from ``source`` with every geometry (-DK2_ALL_GEOMETRIES)."""
     from envpool_tpu_torch.ops.cuda_machine import MachineFrame
 
-    return MachineFrame(build_dir=_PKG / "_build" / "k2_sweep", name="k2_sweep",
+    return MachineFrame(source, _PKG / "_build" / name, name,
                         extra_cflags=("-DK2_ALL_GEOMETRIES",))
+
+
+def check_against_plain(kernels: dict, mc) -> None:
+    """Every geometry of every kernel against the plain frame, on every
+    leaf and each machine's instruction count; raises on a difference."""
+    import torch
+
+    from envpool_tpu_torch.envs.atari import machine_kernel
+    from envpool_tpu_torch.ops.cuda_machine import GEOMETRIES
+
+    cases = [("pong", mc.pong_rom(), 257, 3), ("f8", mc.f8_rom(), 20, 2),
+             ("f6", mc.f6_rom(), 20, 2), ("random0", mc.random_rom(0), 20, 1)]
+    for cart, rom, n, frames in cases:
+        tables = machine_kernel.build_tables(rom, "cuda")
+        plain = [machines(rom, n)]
+        want = torch.zeros(n, dtype=torch.int32, device="cuda")
+        plain_counts = []
+        for _ in range(frames):
+            plain.append(machine_kernel.frame(plain[-1], tables, want))
+            plain_counts.append(want.clone())
+        for name, k2 in kernels.items():
+            for geo in GEOMETRIES:
+                k2.machines_per_warp = geo
+                g = plain[0]
+                got = torch.zeros(n, dtype=torch.int32, device="cuda")
+                for f in range(frames):
+                    g = k2(g, tables, got)
+                    torch.cuda.synchronize()
+                    bad = [k for k in plain[f + 1] if not torch.equal(g[k], plain[f + 1][k])]
+                    if bad or not torch.equal(got, plain_counts[f]):
+                        raise RuntimeError(f"{name} {geo}/warp differs from plain on "
+                                           f"{cart} frame {f}: {bad or 'counts'}")
+        print(f"K2 vs plain [{cart}, {n} lanes x {frames} frames]: every kernel and "
+              f"geometry equal in every leaf and instruction count "
+              f"(max {int(plain_counts[-1].max())} instructions)")
 
 
 def main(argv=None) -> int:
@@ -199,6 +244,10 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--phases", action="store_true",
                     help="only the clock64 phase breakdown of one frame")
+    ap.add_argument("--against", type=pathlib.Path,
+                    help="another machine_frame.cu with the same interface (say, "
+                         "the parent commit's), checked and timed in turns beside "
+                         "this one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k2_probe: no CUDA device", file=sys.stderr)
@@ -211,45 +260,29 @@ def main(argv=None) -> int:
     if args.phases:
         phase_clocks(mc.pong_rom(), args.n)
         return 0
-    print(f"ptxas:\n{ptxas_report(sass_dir=_OUT)}")
-    k2 = sweep_kernel()
-    print(f"K2 build with every geometry: {k2.build():.1f} s")
+    sources = {"this": _SOURCE}
+    if args.against:
+        sources["against"] = args.against.resolve()
+    kernels = {name: sweep_kernel(src, f"k2_sweep_{name}") for name, src in sources.items()}
+    with ThreadPoolExecutor(len(kernels)) as pool:  # the nvcc runs overlap
+        built = {name: pool.submit(k.build) for name, k in kernels.items()}
+        for name, src in sources.items():
+            print(f"ptxas [{name}]:\n{ptxas_report(src, _OUT, name)}")
+        for name, fut in built.items():
+            print(f"K2 [{name}] build with every geometry: {fut.result():.1f} s")
+    check_against_plain(kernels, mc)
 
-    # Every geometry against the plain frame.
-    cases = [("pong", mc.pong_rom(), 257, 3), ("f6", mc.f6_rom(), 20, 2),
-             ("random0", mc.random_rom(0), 20, 1)]
-    for cart, rom, n, frames in cases:
-        tables = machine_kernel.build_tables(rom, "cuda")
-        plain = [machines(rom, n)]
-        want = torch.zeros(n, dtype=torch.int32, device="cuda")
-        plain_counts = []
-        for _ in range(frames):
-            plain.append(machine_kernel.frame(plain[-1], tables, want))
-            plain_counts.append(want.clone())
-        for geo in GEOMETRIES:
-            k2.machines_per_warp = geo
-            g = plain[0]
-            got = torch.zeros(n, dtype=torch.int32, device="cuda")
-            for f in range(frames):
-                g = k2(g, tables, got)
-                torch.cuda.synchronize()
-                bad = [k for k in plain[f + 1] if not torch.equal(g[k], plain[f + 1][k])]
-                if bad or not torch.equal(got, plain_counts[f]):
-                    raise RuntimeError(f"{geo}/warp differs from plain on {cart} "
-                                       f"frame {f}: {bad or 'counts'}")
-        print(f"K2 vs plain [{cart}, {n} lanes x {frames} frames]: every geometry "
-              f"equal in every leaf and instruction count "
-              f"(max {int(plain_counts[-1].max())} instructions)")
-
-    clocks, ns = smem_latency(k2)
+    clocks, ns = smem_latency(kernels["this"])
     print(f"dependent shared-memory load: {clocks:.2f} SM clocks, {ns:.3f} ns "
           f"(SM clock {smi('clocks.sm')})")
 
     rom = mc.pong_rom()
     tables = machine_kernel.build_tables(rom, "cuda")
+    order = [(name, geo) for name in kernels for geo in GEOMETRIES]
     times: dict = {}
     for n, modes in ((args.n, (True, False)), (2 * args.n, (True,)), (args.wide, (True,))):
         warm = {}
+        k2 = kernels["this"]
         for differ in modes:
             g = machines(rom, n, differ)
             k2.machines_per_warp = MACHINES_PER_WARP
@@ -261,14 +294,14 @@ def main(argv=None) -> int:
             print(f"{n} machines, lanes {'differ' if differ else 'lockstep'}: "
                   f"instructions per machine in frame 7: max {int(counts.max())}, "
                   f"mean {float(counts.float().mean()):.1f}")
-        for geo in GEOMETRIES + GEOMETRIES[::-1]:
-            k2.machines_per_warp = geo
+        for name, geo in order + order[::-1]:  # in turns: A B ... B A
+            kernels[name].machines_per_warp = geo
             for differ in modes:
-                ms, _ = time_frames(k2, warm[differ], tables, args.frames)
-                times.setdefault((n, geo, differ), []).append(ms)
+                ms, _ = time_frames(kernels[name], warm[differ], tables, args.frames)
+                times.setdefault((n, name, geo, differ), []).append(ms)
         print(f"SM clock after the {n}-machine runs: {smi('clocks.sm')}")
-    for (n, geo, differ), ms in times.items():
-        print(f"timing {n} machines {geo:2d}/warp lanes "
+    for (n, name, geo, differ), ms in times.items():
+        print(f"timing [{name}] {n} machines {geo:2d}/warp lanes "
               f"{'differ' if differ else 'lockstep'}: "
               + ", ".join(f"{t:.4f}" for t in ms) + " ms/frame")
     print("k2_probe: ok")
