@@ -6,8 +6,9 @@ It builds the port's two CUDA kernels at once (K1: fused max-pool +
 INTER_AREA resize, ``envpool_tpu_torch/csrc/pool_resize.cu``; K2: one video
 frame of every 2600 machine, ``envpool_tpu_torch/csrc/machine_frame.cu``)
 and holds each against its plain PyTorch version on the card.  Then, for
-PongLite-v5 at 2048 envs and for Machine2600-v0 (the 6502+TIA emulator on
-the repository's hand-built pong cart) at 1024 envs, it drives the
+PongLite-v5 at 2048 envs, Machine2600-v0 (the 6502+TIA emulator on the
+repository's hand-built pong cart) at 1024 envs, CartPole-v1 at 16384 envs
+and HalfCheetah-v4 (the rigid-body physics) at 8192 envs, it drives the
 gymnasium, dm and functional entry points, checks the card against the
 CPU port, profiles engine steps and times a rollout.  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
@@ -40,6 +41,18 @@ OUT_HW = (84, 84)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TIE_RULE = "equal everywhere except exact .5 ties, where |diff| <= 1"
+# The widths bench.py runs them at (bench.py:133, :103).
+N_CARTPOLE = 16384
+N_CHEETAH = 8192
+# One step from the same state, |card - cpu| <= tol * (1 + |cpu|): float32
+# rounding for CartPole (tests/test_torch_classic.py), 1e-4 for the
+# physics (tests/test_torch_physics.py).
+CARTPOLE_TOL = 2e-6
+CHEETAH_TOL = 1e-4
+# A HalfCheetah env whose state comes within this of a switch of the
+# penalty forces (a contact depth crossing 0, a joint crossing its limit)
+# may land on either side on the card and on the CPU.
+SWITCH_EPS = 1e-5
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -60,6 +73,26 @@ def _time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _sampler(spec, n: int, device):
+    """``sample(gen)``: random actions of an action spec for ``n`` envs on
+    ``device``, integers over a discrete spec's range, else floats uniform
+    within its bounds."""
+    import torch
+
+    shape = (n, *spec.shape)
+    if spec.is_discrete:
+        lo, hi = int(spec.minimum), int(spec.maximum) + 1
+        return lambda gen: torch.randint(
+            lo, hi, shape, generator=gen, device=device, dtype=torch.int32)
+    lo, hi = (torch.as_tensor(np.asarray(b, np.float32), device=device)
+              for b in (spec.minimum, spec.maximum))
+    return lambda gen: lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+
+def _spec(pool):
+    return pool.spec.action_array_spec["action"]
 
 
 def _pong_frames(n: int, device, rgb: bool):
@@ -217,11 +250,12 @@ def phase_adapters(device: str, n: int) -> None:
     print("truncation at 40 steps and auto-reset: ok")
 
 
-def phase_card_vs_cpu(device: str, task: str, n: int, steps: int, n_actions: int,
+def phase_card_vs_cpu(device: str, task: str, n: int, steps: int,
                       hold: int | None = None, **make_kwargs) -> None:
-    """The same seed on the card and on the CPU: game state, reward, done
-    identical; obs equal except at exact .5 ties.  With ``hold``, env 0
-    takes that action every step and the run must see a termination."""
+    """An Atari task with the same seed on the card and on the CPU: game
+    state, reward, done identical; obs equal except at exact .5 ties.  With
+    ``hold``, env 0 takes that action every step and the run must see a
+    termination."""
     import torch
 
     import envpool_tpu_torch
@@ -238,11 +272,12 @@ def phase_card_vs_cpu(device: str, task: str, n: int, steps: int, n_actions: int
     ties = ObsTies(pools["cpu"].spec.env)
     outs = {d: p.reset()[0] for d, p in pools.items()}
     mask = ties.after_reset()
-    rng = np.random.default_rng(SEED)
+    sample = _sampler(_spec(pools["cpu"]), n, "cpu")
+    gen = torch.Generator().manual_seed(SEED)
     tie_diffs, terms = 0, 0
     for t in range(steps + 1):
         if t:
-            act = rng.integers(0, n_actions, n, dtype=np.int32)
+            act = sample(gen)
             if hold is not None:
                 act[0] = hold
             outs = {d: p.step(act) for d, p in pools.items()}
@@ -277,21 +312,18 @@ def _pool(device: str, task: str, n: int, **make_kwargs):
     )
 
 
-def phase_throughput(device: str, task: str, n: int, steps: int, n_actions: int,
-                     **make_kwargs) -> tuple[float, float]:
+def phase_throughput(device: str, task: str, n: int, steps: int,
+                     **make_kwargs) -> tuple[float, int]:
     """Functional rollout as ``bench.py`` runs it (reset, then ``steps``
-    random steps); returns (env-steps/s, K1 launches per env step)."""
+    random steps); returns (env-steps/s, K1 launches in the timed run)."""
     import torch
 
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
 
     pool = _pool(device, task, n, **make_kwargs)
-
-    def policy(ts, gen):
-        return {"action": torch.randint(
-            0, n_actions, (n,), generator=gen, device=device, dtype=torch.int32)}
-
-    run = pool.engine.make_rollout(policy, steps, collect=False)
+    sample = _sampler(_spec(pool), n, device)
+    run = pool.engine.make_rollout(
+        lambda ts, gen: {"action": sample(gen)}, steps, collect=False)
     ps, _ = run(pool.pool_state, SEED)  # warm-up
     torch.cuda.synchronize()
     before = fused_pool_resize.launches
@@ -299,10 +331,8 @@ def phase_throughput(device: str, task: str, n: int, steps: int, n_actions: int,
     ps, ts = run(ps, SEED + 1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    # one launch for the reset, then one per branch of every step
-    per_step = (fused_pool_resize.launches - before - 1) / steps
     _check(bool((ts["step_type"] >= 0).all()), "rollout output")
-    return steps * n / dt, per_step
+    return steps * n / dt, fused_pool_resize.launches - before
 
 
 def _device_events(events) -> list:
@@ -314,8 +344,14 @@ def _device_events(events) -> list:
             and e.self_device_time_total > 0]
 
 
-def phase_profile(device: str, task: str, n: int, steps: int, n_actions: int,
-                  warmup: int, kernel: str | None = None, **make_kwargs) -> None:
+def _launches(events) -> int:
+    """Kernel launches the profiler saw on the host side."""
+    return sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+
+
+def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
+                  kernel: str | None = None, **make_kwargs) -> None:
     """``torch.profiler`` over ``steps`` engine steps after ``warmup`` ones:
     device time, idle share, launches per step, the kernels that take the
     most time and, given a kernel's name, its share of the device time."""
@@ -325,10 +361,10 @@ def phase_profile(device: str, task: str, n: int, steps: int, n_actions: int,
     eng = pool.engine
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
+    sample = _sampler(_spec(pool), n, device)
 
     def act():
-        return {"action": torch.randint(
-            0, n_actions, (n,), generator=gen, device=device, dtype=torch.int32)}
+        return {"action": sample(gen)}
 
     ps, _ = eng.reset(pool.pool_state, torch.ones(n, dtype=torch.bool, device=device))
     for _ in range(warmup):
@@ -346,8 +382,7 @@ def phase_profile(device: str, task: str, n: int, steps: int, n_actions: int,
     kernels = _device_events(events)
     device_us = sum(e.self_device_time_total for e in kernels)
     _check(device_us > 0, "the profiler saw no device time")
-    launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+    launches = _launches(events)
     share = ""
     if kernel is not None:
         mine = [e for e in kernels if kernel in e.key]
@@ -592,6 +627,218 @@ def phase_machine_adapters(device: str, n: int, rom_path: str) -> int:
     return per_step
 
 
+# ---------------------------------------------------------------------------
+# CartPole-v1 (classic control) and HalfCheetah-v4 (the rigid-body physics)
+# ---------------------------------------------------------------------------
+
+
+def phase_float_adapters(device: str, task: str, n: int, episode: int) -> dict:
+    """A classic-control or physics task through the gymnasium pool made
+    with no ``device`` argument (which must land on ``device``), a dm pool
+    and the functional handle; the gymnasium pool truncates at ``episode``
+    steps.  Returns what the gymnasium run saw."""
+    import torch
+
+    import envpool_tpu_torch
+
+    pool = envpool_tpu_torch.make(
+        task, env_type="gymnasium", num_envs=n, seed=SEED, numpy_output=False,
+        max_episode_steps=episode,
+    )
+    _check(pool.pool_state.key.device.type == device, "default device is not the card")
+    sample = _sampler(_spec(pool), n, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    obs_shape = (n, *pool.spec.state_array_spec["obs"].shape)
+    obs, info = pool.reset()
+    seen = {"terminated": 0, "truncated": 0, "resets": 0}
+    reward = 0.0
+    for _ in range(episode + 2):
+        obs, rew, term, trunc, info = pool.step(sample(gen))
+        seen["terminated"] += int((term & ~trunc).sum())
+        seen["truncated"] += int(trunc.sum())
+        seen["resets"] += int((info["elapsed_step"] == 0).sum())
+        reward += float(rew.sum())
+    _check(tuple(obs.shape) == obs_shape and obs.dtype == torch.float32,
+           f"obs {tuple(obs.shape)} {obs.dtype}")
+    _check(obs.device.type == device, f"obs on {obs.device}")
+    _check(bool(torch.isfinite(obs).all()) and np.isfinite(reward), "non-finite output")
+    _check(seen["truncated"] > 0 and seen["resets"] > 0,
+           f"truncation at {episode} steps and auto-reset: {seen}")
+    print(f"{task} gymnasium (no device argument: {obs.device}): obs {tuple(obs.shape)}; "
+          f"{episode + 2} random steps: {seen}, reward sum {reward:.6g}")
+
+    dm = envpool_tpu_torch.make_dm(task, num_envs=n, seed=SEED, device=device)
+    ts = dm.reset()
+    _check(bool((ts.step_type == 0).all()), "dm reset step_type")
+    for _ in range(3):
+        ts = dm.step(sample(gen).cpu().numpy())
+    _check(ts.observation.obs.shape == obs_shape, "dm obs shape")
+    _check(bool(np.isfinite(ts.observation.obs).all()), "dm obs not finite")
+    print(f"{task} dm: 3 steps, obs {ts.observation.obs.shape}, step_type "
+          f"{sorted(set(ts.step_type.tolist()))}")
+
+    handle, recv, send, step = pool.xla()
+    for _ in range(3):
+        handle, (obs, rew, term, trunc, info) = step(handle, sample(gen))
+    _check(tuple(obs.shape) == obs_shape and obs.device.type == device,
+           "functional obs")
+    print(f"{task} functional: 3 steps, obs {tuple(obs.shape)} on {obs.device}")
+    return seen
+
+
+def _cartpole_margin(ts):
+    """``[N]`` distance of each new CartPole state to its termination
+    thresholds."""
+    import torch
+
+    obs = ts["obs"]
+    return torch.minimum(
+        (obs[:, 0].abs() - 2.4).abs(),
+        (obs[:, 2].abs() - 12 * 2 * np.pi / 360).abs(),
+    )
+
+
+def _cheetah_switch(model, ps, act, frame_skip: int):
+    """``[N]`` True where a stepped HalfCheetah env comes within SWITCH_EPS
+    of a switch of the penalty forces at the start of a substep (CPU)."""
+    import torch
+
+    from envpool_tpu_torch.physics import dynamics
+
+    q, qd = ps.env_state["qpos"], ps.env_state["qvel"]
+    dist = dynamics.switch_distance(model, q)
+    for _ in range(frame_skip - 1):
+        q, qd = dynamics.step(model, q, qd, act)
+        dist = torch.minimum(dist, dynamics.switch_distance(model, q))
+    return (dist < SWITCH_EPS) & ~ps.autoreset
+
+
+def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
+                            steps: int, tol: float) -> None:
+    """After ``warmup`` random steps on the card, ``steps`` engine steps
+    each taken on the card and on the CPU from the same pool state and
+    action: float fields within ``tol * (1 + |cpu|)``, the rest equal.
+    CartPole's done flags may differ only where the new state lies within
+    ``tol`` of a threshold; a HalfCheetah env that comes within SWITCH_EPS
+    of a penalty-force switch is left out (at most 1% of them).  For
+    HalfCheetah the caller allows TF32, and the physics must still run its
+    matmuls without it."""
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch.core.engine import Engine, PoolState, _tree_map
+    from envpool_tpu_torch.physics import dynamics
+
+    card = _pool(device, task, n)
+    cpu = Engine(envpool_tpu_torch.make_spec(task, num_envs=n, seed=SEED,
+                                             device="cpu").env)
+    env = card.spec.env
+    eng = card.engine
+    gen = torch.Generator().manual_seed(SEED)
+    sample = _sampler(_spec(card), n, "cpu")
+    ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
+    for _ in range(warmup):
+        ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
+    physics = task.startswith("HalfCheetah")
+    matmul = torch.backends.cuda.matmul
+    tf32_seen = set()
+    solve = dynamics.spd_solve
+
+    def spy(M, b):
+        tf32_seen.add(matmul.fp32_precision)
+        return solve(M, b)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs() / (1 + b.double().abs())).amax(-1)
+
+    worst, skipped, flips, resets = 0.0, 0, 0, 0
+    f64 = (0.0, 0.0, 0.0)  # worst qpos/qvel row: card-cpu, card-f64, cpu-f64
+    for t in range(steps):
+        act = sample(gen)
+        ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), f) for f in (
+            ps.env_state, ps.key, ps.elapsed, ps.autoreset, ps.full_reset)))
+        dynamics.spd_solve = spy
+        matmul.fp32_precision = "tf32"  # a caller that allows TF32
+        try:
+            ps, got = eng.step(ps, {"action": act.to(device)})
+            torch.cuda.synchronize()
+            _check(matmul.fp32_precision == "tf32",
+                   "the step did not restore the caller's TF32 setting")
+        finally:
+            dynamics.spd_solve = solve
+            matmul.fp32_precision = "ieee"
+        cps, want = cpu.step(ps_cpu, {"action": act})
+        skip = (_cheetah_switch(env.model, ps_cpu, act, env.frame_skip)
+                if physics else torch.zeros(n, dtype=torch.bool))
+        if physics:  # the worst stepped env against a float64 step
+            a, b = (torch.cat([x.env_state["qpos"].cpu(), x.env_state["qvel"].cpu()], 1)
+                    for x in (ps, cps))
+            err = rel(a, b).masked_fill(ps_cpu.autoreset | skip, 0)
+            i = int(err.argmax())
+            if float(err[i]) > f64[0]:
+                st = ps_cpu.env_state
+                ref = torch.cat(dynamics.step(
+                    env.model, st["qpos"][i:i + 1].double(), st["qvel"][i:i + 1].double(),
+                    act[i:i + 1].double(), nsteps=env.frame_skip), 1)[0]
+                f64 = (float(err[i]), float(rel(a[i], ref)), float(rel(b[i], ref)))
+        flip_ok = (torch.zeros(n, dtype=torch.bool) if physics
+                   else _cartpole_margin(want) < tol)
+        skipped += int(skip.sum())
+        resets += int((want["step_type"] == 0).sum())
+        for k, w in want.items():
+            g = got[k].cpu()
+            if w.is_floating_point():
+                err = ((g - w).abs() / (1 + w.abs())).reshape(n, -1).amax(1)
+                worst = max(worst, float(err[~skip].max()))
+                _check(bool((err[~skip] <= tol).all()),
+                       f"{k} differs by {float(err[~skip].max()):.3g} at step {t}")
+            else:
+                differ = (g != w).reshape(n, -1).any(1) & ~skip
+                flips += int((differ & flip_ok).sum()) if k == "done" else 0
+                _check(not bool((differ & ~flip_ok).any()), f"{k} differs at step {t}")
+    _check(skipped <= 0.01 * n * steps, f"{skipped} envs near a switch")
+    _check(not physics or tf32_seen == {"ieee"},
+           f"TF32 inside the physics step: fp32_precision seen {tf32_seen}")
+    print(
+        f"{task} card vs CPU, {n} envs x {steps} steps from the same states "
+        f"(after {warmup} warm-up steps, {resets} resets among them): largest "
+        f"|card - cpu| / (1 + |cpu|) = {worst:.3g} (tolerance {tol:g}); done "
+        f"flags that differ at a threshold: {flips}; envs left out within "
+        f"{SWITCH_EPS:g} of a penalty-force switch: {skipped}"
+        + (f"; on the env whose qpos/qvel differ most ({f64[0]:.3g}), a float64 "
+           f"step puts the card at {f64[1]:.3g} and the CPU at {f64[2]:.3g}; TF32 "
+           "off inside every physics step while the caller allowed it"
+           if physics else "")
+    )
+
+
+def phase_spd_solve(device: str, n: int) -> None:
+    """The physics' batched SPD solve alone at HalfCheetah's shape
+    (``[n, 9, 9]``): its launches and device time per call, and its
+    residual on random SPD matrices."""
+    import torch
+
+    from envpool_tpu_torch.physics.linalg import spd_solve
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    a = torch.randn(n, 9, 9, generator=gen, device=device)
+    M = a @ a.transpose(1, 2) + torch.eye(9, device=device)
+    b = torch.randn(n, 9, generator=gen, device=device)
+    x = spd_solve(M, b)
+    res = float(((M @ x[..., None])[..., 0] - b).abs().max())
+    _check(res < 1e-3, f"spd_solve residual {res}")
+    ms = _time_ms(lambda: spd_solve(M, b))
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        spd_solve(M, b)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    names = sorted({e.key[:40] for e in _device_events(events)})
+    print(f"spd_solve at ({n}, 9, 9): {ms:.4f} ms per call, {_launches(events)} "
+          f"kernel launches ({'; '.join(names)}); max residual {res:.3g}")
+
+
 def main() -> int:
     import torch
 
@@ -610,7 +857,7 @@ def main() -> int:
     card = smi("name,power.limit")
     print(f"device: {kind}")
     print(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
     torch.backends.cudnn.allow_tf32 = False
 
     # Build both kernels at once (one nvcc each).
@@ -626,9 +873,11 @@ def main() -> int:
     k1_launches = fused_pool_resize.launches
     _check(k1_launches > 0, "the PongLite-v5 path never launched K1")
     print(f"K1 launches on the PongLite-v5 path: {k1_launches}")
-    phase_card_vs_cpu(device, "PongLite-v5", 8, 100, 6, max_episode_steps=150)
-    phase_profile(device, "PongLite-v5", N_ENVS, 8, 6, warmup=4)
-    steps_per_s, per_step = phase_throughput(device, "PongLite-v5", N_ENVS, 128, 6)
+    phase_card_vs_cpu(device, "PongLite-v5", 8, 100, max_episode_steps=150)
+    phase_profile(device, "PongLite-v5", N_ENVS, 8, warmup=4)
+    steps_per_s, k1_run = phase_throughput(device, "PongLite-v5", N_ENVS, 128)
+    # one launch for the reset, then one per branch of every step
+    per_step = (k1_run - 1) / 128
     _check(per_step == 2, f"K1 launches per env step {per_step}, expected 2")
     print(f"K1 launches per env step: {per_step:g} (step branch + reset branch)")
     print(
@@ -657,18 +906,44 @@ def main() -> int:
           f"({k2_per_step:g} per env step); K1 launches there: {k1_machine}")
     # 44 envs: K2 runs blocks of 8 machines (two warps of 4), so five full
     # blocks and a sixth with 4.  Env 0 holds DOWN and loses its life.
-    phase_card_vs_cpu(device, "Machine2600-v0", 44, 12, 18, hold=5, frame_skip=1,
+    phase_card_vs_cpu(device, "Machine2600-v0", 44, 12, hold=5, frame_skip=1,
                       noop_max=1, use_fire_reset=False, **machine)
-    phase_profile(device, "Machine2600-v0", N_MACHINES, 2, 18, warmup=1,
+    phase_profile(device, "Machine2600-v0", N_MACHINES, 2, warmup=1,
                   kernel="machine_frame_kernel", **machine)
-    machine_steps, k1_per_step = phase_throughput(
-        device, "Machine2600-v0", N_MACHINES, 16, 18, **machine)
+    machine_steps, k1_run = phase_throughput(
+        device, "Machine2600-v0", N_MACHINES, 16, **machine)
+    k1_per_step = (k1_run - 1) / 16
     _check(k1_per_step == 2, f"K1 launches per Machine2600 step {k1_per_step}, expected 2")
     print(
         f"Machine2600-v0 functional rollout, {N_MACHINES} envs x 16 steps: "
         f"{machine_steps:,.1f} env-steps/s = {machine_steps * 35:,.0f} emulated "
         f"frames/s (35 per env step) on {card}"
     )
+
+    # -- CartPole-v1 and HalfCheetah-v4: no Pallas kernel on their path ----
+    for task, n, episode, tol, rollout_steps in (
+        ("CartPole-v1", N_CARTPOLE, 15, CARTPOLE_TOL, 1024),
+        ("HalfCheetah-v4", N_CHEETAH, 20, CHEETAH_TOL, 128),
+    ):
+        machine_frame.launches = 0
+        fused_pool_resize.launches = 0
+        seen = phase_float_adapters(device, task, n, episode)
+        _check(fused_pool_resize.launches == machine_frame.launches == 0,
+               f"{task} launched K1 or K2")
+        _check(task != "CartPole-v1" or seen["terminated"] > 0,
+               "no CartPole termination")
+        _check(task != "HalfCheetah-v4" or (seen["terminated"], seen["truncated"]) == (0, n),
+               "HalfCheetah ends its episodes by truncation alone")
+        phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3, tol=tol)
+        phase_profile(device, task, n, 4, warmup=2)
+        if task == "HalfCheetah-v4":
+            phase_spd_solve(device, n)
+        task_steps, k1_run = phase_throughput(device, task, n, rollout_steps)
+        _check(k1_run == 0, f"{task} rollout launched K1")
+        print(
+            f"{task} functional rollout, {n} envs x {rollout_steps} steps: "
+            f"{task_steps:,.0f} env-steps/s on {card}"
+        )
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -5,9 +5,10 @@ The JAX engine keeps one threefry key per env and splits it every step
 those bits, so the port keeps its own per-env streams: a key is an
 ``[N, 2]`` int64 tensor of two 32-bit words, ``(stream, counter)``, seeded
 from ``seed + env_id`` (or ``env_seed``).  :func:`split` hands out a
-subkey and advances the counter; :func:`randint` and :func:`uniform` hash
-``(subkey, slot)`` into one draw per env.  An env's draws therefore depend
-only on its own seed and step count, never on ``num_envs``.
+subkey and advances the counter; :func:`randint`, :func:`uniform` and
+:func:`normal` hash ``(subkey, slot)`` into draws per env.
+An env's draws therefore depend only on its own seed and step count, never
+on ``num_envs``.
 
 All arithmetic stays below 2**63 in int64, so the hash gives the same
 bits on the CPU and on the card.
@@ -15,10 +16,20 @@ bits on the CPU and on the card.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["seed_keys", "split", "randint", "uniform", "random_bits"]
+__all__ = [
+    "seed_keys",
+    "split",
+    "randint",
+    "uniform",
+    "uniform_range",
+    "normal",
+    "random_bits",
+]
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -58,10 +69,15 @@ def split(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return nxt, sub
 
 
-def random_bits(sub: torch.Tensor, slot: int) -> torch.Tensor:
-    """``[N]`` uniform 32-bit words (int64) for draw number ``slot``."""
-    salt = _mix32(sub[:, 1] ^ ((slot * _GOLDEN) & _M32))
-    return _mix32(sub[:, 0] ^ salt)
+def random_bits(sub: torch.Tensor, slot: int, k: int | None = None) -> torch.Tensor:
+    """``[N]`` uniform 32-bit words (int64) for draw number ``slot``; with
+    ``k``, ``[N, k]`` words for draws ``slot .. slot + k - 1``."""
+    stream, counter = sub[:, 0], sub[:, 1]
+    if k is not None:
+        stream, counter = stream[:, None], counter[:, None]
+        slot = torch.arange(slot, slot + k, device=sub.device)
+    salt = _mix32(counter ^ ((slot * _GOLDEN) & _M32))
+    return _mix32(stream ^ salt)
 
 
 def randint(sub: torch.Tensor, slot: int, n: int) -> torch.Tensor:
@@ -69,6 +85,21 @@ def randint(sub: torch.Tensor, slot: int, n: int) -> torch.Tensor:
     return ((random_bits(sub, slot) * n) >> 32).to(torch.int32)
 
 
-def uniform(sub: torch.Tensor, slot: int) -> torch.Tensor:
-    """``[N]`` float32 draws uniform in ``[0, 1)``."""
-    return (random_bits(sub, slot) >> 8).to(torch.float32) * (2.0**-24)
+def uniform(sub: torch.Tensor, slot: int, k: int | None = None) -> torch.Tensor:
+    """``[N]`` float32 draws uniform in ``[0, 1)``; ``[N, k]`` with ``k``."""
+    return (random_bits(sub, slot, k) >> 8).to(torch.float32) * (2.0**-24)
+
+
+def uniform_range(
+    sub: torch.Tensor, lo: float, hi: float, k: int, slot: int = 0
+) -> torch.Tensor:
+    """``[N, k]`` float32 draws uniform in ``[lo, hi)``."""
+    return lo + (hi - lo) * uniform(sub, slot, k)
+
+
+def normal(sub: torch.Tensor, slot: int, k: int) -> torch.Tensor:
+    """``[N, k]`` float32 standard normal draws: Box-Muller over the
+    uniform draws of slots ``slot .. slot + 2k - 1``."""
+    u = uniform(sub, slot, 2 * k)
+    radius = torch.sqrt(-2.0 * torch.log(1.0 - u[:, :k]))  # 1 - u is in (0, 1]
+    return radius * torch.cos(2.0 * math.pi * u[:, k:])

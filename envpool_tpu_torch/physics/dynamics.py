@@ -1,0 +1,405 @@
+"""Articulated rigid-body dynamics in closed form, batched over envs.
+
+Counterpart of the einsum path of ``envpool_tpu/physics/dynamics.py``:
+
+    M(q) qdd = τ_applied + τ_passive + τ_contact − c(q, qd)
+
+One tree pass (``kinematics.fk_dof``) emits every dof's world-frame screw;
+with the static masks of ``structure.dof_structure`` the Jacobians, the
+velocities, the bias accelerations (MuJoCo's RNE terms, by the product
+rule through the screws' time derivatives), the mass matrix and the
+penalty contacts against the ground plane are closed-form batched products
+over ``[N, ...]`` tensors.  Euler with implicit damping and RK4 integrate.
+
+Left out, each raising ``NotImplementedError``: fluid drag, tendons,
+affine-bias actuators, body-body contact pairs and the constraint solver
+(``contact_solver="mujoco"``).  The JAX package's lane-parallel scalar
+backend (``physics/scalar.py``) and its ``custom_vmap`` dispatch are a TPU
+layout and are not ported.
+
+Matmuls run in full float32: :func:`step` turns TF32 off while it runs, as
+the JAX code forces float32 matmul precision in its step.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import torch
+
+from .kinematics import fk, fk_dof, integrate_qpos, model_tensors
+from .linalg import spd_solve
+from .model import PhysModel
+
+__all__ = [
+    "ContactParams",
+    "body_positions",
+    "bias_forces",
+    "contact_depths",
+    "forward",
+    "full_fp32",
+    "mass_matrix",
+    "site_positions",
+    "step",
+    "switch_distance",
+]
+
+_KLIM = 300.0  # soft joint-limit stiffness (dynamics.py::_passive_forces)
+
+
+class ContactParams(NamedTuple):
+    """Penalty-contact constants (per model, tunable)."""
+
+    kp: float = 1.0e4    # normal stiffness
+    kd: float = 1.0e2    # normal damping
+    mu_scale: float = 1.0  # scales geom friction
+    vs: float = 0.05     # friction velocity smoothing (m/s)
+    ten_kp: float = 2.0e3  # spatial-tendon limit penalty stiffness
+    ten_kd: float = 2.0e1  # spatial-tendon limit penalty damping
+    pairs: bool = False  # body-body contacts (not ported)
+    pair_kp: float = 1.0e4
+    pair_kd: float = 1.0e2
+    solver: str = "penalty"  # "mujoco" (the constraint solver) is not ported
+    sol_iters: int = 40
+
+
+def check_supported(model: PhysModel, contact: ContactParams) -> None:
+    """Raise ``NotImplementedError`` for what the port's dynamics lack."""
+    missing = []
+    if model.density > 0 or model.viscosity > 0:
+        missing.append("fluid drag")
+    if len(model.ten_fixed) or (
+        model.ten_spatial_sites is not None and len(model.ten_spatial_sites)
+    ):
+        missing.append("tendons")
+    if model.act_biastype is not None and model.act_biastype.any():
+        missing.append("affine-bias actuators")
+    if model.act_trntype is not None and model.act_trntype.any():
+        missing.append("tendon transmissions")
+    if contact.pairs:
+        missing.append("body-body contact pairs")
+    if contact.solver != "penalty":
+        missing.append(f"contact_solver={contact.solver!r}")
+    if missing:
+        raise NotImplementedError(
+            "not ported to envpool_tpu_torch's physics: " + ", ".join(missing)
+        )
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Run CUDA float32 matmuls without TF32 inside the block, whatever the
+    caller set; restore the caller's setting after.
+
+    Uses the backend's ``fp32_precision`` setting, not the older
+    ``allow_tf32`` flag: torch refuses some reads once both have been set.
+    """
+    matmul = torch.backends.cuda.matmul
+    before = matmul.fp32_precision
+    matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision = before
+
+
+def site_positions(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
+    """World positions of all sites: ``[N, ns, 3]``."""
+    Rs, ps = fk(model, q)
+    mt = model_tensors(model, q.device, q.dtype)
+    sb = mt.site_body
+    return ps[:, sb] + torch.einsum("nsij,sj->nsi", Rs[:, sb], mt.site_pos)
+
+
+def body_positions(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
+    """World positions of body frame origins: ``[N, nb, 3]``."""
+    return fk(model, q)[1]
+
+
+def _contact_points(mt, Rs, ps):
+    """World positions of the contact spheres' centers: ``[N, nc, 3]``."""
+    cb = mt.con_body
+    return ps[:, cb] + torch.einsum("ncij,cj->nci", Rs[:, cb], mt.con_pos)
+
+
+def contact_depths(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
+    """Penetration of every contact sphere into the ground: ``[N, nc]``
+    (positive while in contact)."""
+    mt = model_tensors(model, q.device, q.dtype)
+    return mt.con_radius - _contact_points(mt, *fk(model, q))[..., 2]
+
+
+def switch_distance(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
+    """Each env's distance ``[N]`` to the nearest switch of the penalty
+    forces: a contact's depth crossing 0, or a limited joint crossing its
+    range.  Two float32 runs of one step may fall on different sides of a
+    switch that lies within their rounding error of the state."""
+    mt = model_tensors(model, q.device, q.dtype)
+    qs = q[:, mt.hs_qadr]
+    return torch.cat(
+        [
+            contact_depths(model, q).abs(),
+            (qs - mt.hs_lo).abs(),
+            (qs - mt.hs_hi).abs(),
+        ],
+        1,
+    ).amin(1)
+
+
+class _Kin(NamedTuple):
+    """Everything the dynamics needs from one tree pass."""
+
+    Rs: torch.Tensor       # [N, nb, 3, 3]
+    ps: torch.Tensor       # [N, nb, 3]
+    t: torch.Tensor        # [N, nv, 3] screw linear directions
+    w: torch.Tensor        # [N, nv, 3] screw rotation axes
+    c: torch.Tensor        # [N, nv, 3] screw anchors
+    x_com: torch.Tensor    # [N, nb, 3] world CoM positions
+    centers: torch.Tensor  # [N, nc, 3] contact sphere centers
+
+
+def _kin(model: PhysModel, q: torch.Tensor) -> _Kin:
+    mt = model_tensors(model, q.device, q.dtype)
+    Rs, ps, t, w, c = fk_dof(model, q)
+    x_com = ps + torch.einsum("nbij,bj->nbi", Rs, mt.body_ipos)
+    return _Kin(Rs, ps, t, w, c, x_com, _contact_points(mt, Rs, ps))
+
+
+def _point_vel(mask_T, tv, wv, wxc, x):
+    """Velocity of mask-selected material points ``x`` ``[N, m, 3]``.
+
+    v(x) = maskᵀ tv + (maskᵀ wv) × x − maskᵀ (wv × c)
+    (every point's mask selects a single kinematic chain).
+    """
+    om = mask_T @ wv
+    return mask_T @ tv + torch.linalg.cross(om, x) - mask_T @ wxc, om
+
+
+def _jac_from_kin(mt, k: _Kin):
+    """Jacobians of (CoM velocity, ω, contact velocity) with respect to qd:
+    ``Jp, Jr [N, nv, nb, 3]`` and ``Jc [N, nv, nc, 3]``."""
+    Mf = mt.body_mask[None, :, :, None]
+    tk, wk = k.t[:, :, None, :], k.w[:, :, None, :]
+    rel = k.x_com[:, None] - k.c[:, :, None]
+    Jp = Mf * (tk + torch.linalg.cross(wk, rel))
+    Jr = Mf * wk.expand_as(rel)
+    relc = k.centers[:, None] - k.c[:, :, None]
+    Jc = mt.con_mask[None, :, :, None] * (tk + torch.linalg.cross(wk, relc))
+    return Jp, Jr, Jc
+
+
+def _world_inertia(mt, Rs):
+    """Body inertia tensors in the world frame: ``[N, nb, 3, 3]``."""
+    Rw = Rs @ mt.inertia_rot
+    return torch.einsum("nbij,bj,nbkj->nbik", Rw, mt.body_inertia, Rw)
+
+
+def _mass_from_jac(mt, Jp, Jr, Iw):
+    M = torch.einsum("b,nibk,njbk->nij", mt.body_mass, Jp, Jp)
+    M = M + torch.einsum("nibk,nbkl,njbl->nij", Jr, Iw, Jr)
+    return M + torch.diag(mt.dof_armature)
+
+
+def mass_matrix(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
+    """Joint-space inertia matrices ``[N, nv, nv]`` (with armature)."""
+    mt = model_tensors(model, q.device, q.dtype)
+    k = _kin(model, q)
+    Jp, Jr, _ = _jac_from_kin(mt, k)
+    return _mass_from_jac(mt, Jp, Jr, _world_inertia(mt, k.Rs))
+
+
+def _bias_accels(mt, k: _Kin, qd):
+    """Body CoM accelerations and ω̇ at qdd = 0 (the RNE velocity products).
+
+    With qd fixed: ṫ = ω_pre × t, ẇ = ω_pre × w, ċ = v_pre(c), where
+    ω_pre / v_pre sum strictly preceding dofs (precedence mask), and
+    a(x) = Σ_k M[k,b] qd_k [ṫ_k + ẇ_k × (x − c_k) + w_k × (v(x) − ċ_k)].
+    """
+    cross = torch.linalg.cross
+    Mf_T, P_T = mt.body_mask_T, mt.prec_T
+    tv = qd[..., None] * k.t
+    wv = qd[..., None] * k.w
+    wxc = cross(wv, k.c)
+    v_com, omega = _point_vel(Mf_T, tv, wv, wxc, k.x_com)
+    omega_pre = P_T @ wv
+    vc = P_T @ tv + cross(omega_pre, k.c) - P_T @ wxc
+    tdv = cross(omega_pre, tv)
+    wdv = cross(omega_pre, wv)
+    omega_dot = Mf_T @ wdv
+    a_com = (
+        Mf_T @ tdv
+        + cross(omega_dot, k.x_com)
+        - Mf_T @ cross(wdv, k.c)
+        + cross(omega, v_com)
+        - Mf_T @ cross(wv, vc)
+    )
+    return v_com, omega, a_com, omega_dot
+
+
+def _bias_from_accels(mt, a_com, omega, omega_dot, Iw, Jp, Jr):
+    f = mt.body_mass[:, None] * (a_com - mt.gravity)
+    Iom = torch.einsum("nbij,nbj->nbi", Iw, omega)
+    t = torch.einsum("nbij,nbj->nbi", Iw, omega_dot) + torch.linalg.cross(
+        omega, Iom
+    )
+    return torch.einsum("nbk,nibk->ni", f, Jp) + torch.einsum(
+        "nbk,nibk->ni", t, Jr
+    )
+
+
+def bias_forces(
+    model: PhysModel, q: torch.Tensor, qd: torch.Tensor
+) -> torch.Tensor:
+    """c(q, qd): Coriolis, centrifugal and gravity forces, ``[N, nv]``."""
+    mt = model_tensors(model, q.device, q.dtype)
+    k = _kin(model, q)
+    _, omega, a_com, omega_dot = _bias_accels(mt, k, qd)
+    Jp, Jr, _ = _jac_from_kin(mt, k)
+    Iw = _world_inertia(mt, k.Rs)
+    return _bias_from_accels(mt, a_com, omega, omega_dot, Iw, Jp, Jr)
+
+
+def _contact_forces_shared(mt, params: ContactParams, centers, v_con, Jc):
+    """Generalized force of the ground-plane penalty springs, and the
+    velocity derivative ``−∂τ/∂qd`` of the contact model (normal damping
+    ``kd`` plus the friction slope ``μ·fn/vs``) in joint space, which the
+    Euler step folds into its implicit left-hand side."""
+    pen = mt.con_radius - centers[..., 2]  # > 0: penetrating
+    active = pen > 0
+    fn = torch.where(active, params.kp * pen - params.kd * v_con[..., 2], 0.0)
+    fn = torch.clamp_min(fn, 0.0)
+    # Smooth Coulomb friction on the tangential velocity.
+    vt = v_con[..., :2]
+    mu = mt.con_friction * params.mu_scale
+    vt_norm = torch.linalg.vector_norm(vt, dim=-1)
+    scale = torch.tanh(vt_norm / params.vs)
+    vt_dir = vt / (vt_norm[..., None] + 1e-9)
+    ft = -(mu * fn * scale)[..., None] * vt_dir
+    forces = torch.cat([ft, fn[..., None]], -1)  # [N, nc, 3]
+    w_t = mu * fn / params.vs
+    w_n = torch.where(active, params.kd, 0.0)
+    w = torch.stack([w_t, w_t, w_n], -1)
+    d_con = torch.einsum("nick,nck,njck->nij", Jc, w, Jc)
+    return torch.einsum("nck,nick->ni", forces, Jc), d_con
+
+
+def _passive_forces(mt, q):
+    """Joint springs and the soft joint-limit penalty (damping implicit)."""
+    qs = q[:, mt.hs_qadr]
+    below = torch.clamp_max(qs - mt.hs_lo, 0.0)
+    above = torch.clamp_min(qs - mt.hs_hi, 0.0)
+    spring = -mt.hs_stiffness * (qs - mt.hs_springref) - _KLIM * (below + above)
+    return q.new_zeros(q.shape[0], mt.dof_damping.shape[0]).index_add_(
+        1, mt.hs_dadr, spring
+    )
+
+
+def _limit_violation(mt, q):
+    """Per dof, 1 where its joint is outside its range, else 0."""
+    qs = q[:, mt.hs_qadr]
+    out = ((qs < mt.hs_lo) | (qs > mt.hs_hi)).to(q.dtype)
+    return q.new_zeros(q.shape[0], mt.dof_damping.shape[0]).index_copy_(
+        1, mt.hs_dadr, out
+    )
+
+
+def _actuator_forces(mt, ctrl):
+    """τ = clip(ctrl) through the moment rows (gear · gain per dof)."""
+    return torch.clamp(ctrl, mt.act_lo, mt.act_hi) @ mt.act_moment
+
+
+def _smooth(model: PhysModel, q, qd, ctrl, contact: ContactParams):
+    """One shared pass: ``(M, τ, D_con, kin)`` with every force once."""
+    mt = model_tensors(model, q.device, q.dtype)
+    k = _kin(model, q)
+    Iw = _world_inertia(mt, k.Rs)
+    Jp, Jr, Jc = _jac_from_kin(mt, k)
+    _, omega, a_com, omega_dot = _bias_accels(mt, k, qd)
+    M = _mass_from_jac(mt, Jp, Jr, Iw)
+    c = _bias_from_accels(mt, a_com, omega, omega_dot, Iw, Jp, Jr)
+    tv = qd[..., None] * k.t
+    wv = qd[..., None] * k.w
+    v_con, _ = _point_vel(
+        mt.con_mask_T, tv, wv, torch.linalg.cross(wv, k.c), k.centers
+    )
+    tau_con, d_con = _contact_forces_shared(mt, contact, k.centers, v_con, Jc)
+    tau = (
+        _actuator_forces(mt, ctrl)
+        + _passive_forces(mt, q)
+        + tau_con
+        - c
+        - mt.dof_damping * qd
+    )
+    return M, tau, d_con, k
+
+
+def forward(
+    model: PhysModel,
+    q: torch.Tensor,
+    qd: torch.Tensor,
+    ctrl: torch.Tensor,
+    contact: ContactParams = ContactParams(),
+) -> torch.Tensor:
+    """Forward dynamics: qacc ``[N, nv]`` with explicit damping (for RK4)."""
+    check_supported(model, contact)
+    M, tau, _, _ = _smooth(model, q, qd, ctrl, contact)
+    return spd_solve(M, tau)
+
+
+def _euler(model, q, qd, ctrl, contact, h):
+    """Euler with implicit damping: ``(M + h·D) qacc = τ − d_lim·qd``.
+
+    The joint-limit penalty is critically damped against the dof's own
+    inertia while violated, and the contact damping ``D_con`` joins the
+    left-hand side, as in the JAX step.
+    """
+    mt = model_tensors(model, q.device, q.dtype)
+    M, tau, d_con, _ = _smooth(model, q, qd, ctrl, contact)
+    diag_M = torch.diagonal(M, dim1=-2, dim2=-1)
+    d_lim = 2.0 * torch.sqrt(_KLIM * diag_M) * _limit_violation(mt, q)
+    M_imp = M + h * (torch.diag_embed(mt.dof_damping + d_lim) + d_con)
+    qacc = spd_solve(M_imp, tau - d_lim * qd)
+    qd_new = qd + h * qacc
+    return integrate_qpos(model, q, qd_new, h), qd_new
+
+
+def _rk4(model, q, qd, ctrl, contact, h):
+    a1 = forward(model, q, qd, ctrl, contact)
+    q2 = integrate_qpos(model, q, qd, h / 2)
+    qd2 = qd + (h / 2) * a1
+    a2 = forward(model, q2, qd2, ctrl, contact)
+    q3 = integrate_qpos(model, q, qd2, h / 2)
+    qd3 = qd + (h / 2) * a2
+    a3 = forward(model, q3, qd3, ctrl, contact)
+    q4 = integrate_qpos(model, q, qd3, h)
+    qd4 = qd + h * a3
+    a4 = forward(model, q4, qd4, ctrl, contact)
+    qd_avg = (qd + 2 * qd2 + 2 * qd3 + qd4) / 6
+    qacc = (a1 + 2 * a2 + 2 * a3 + a4) / 6
+    return integrate_qpos(model, q, qd_avg, h), qd + h * qacc
+
+
+def step(
+    model: PhysModel,
+    qpos: torch.Tensor,
+    qvel: torch.Tensor,
+    ctrl: torch.Tensor,
+    substeps: int = 1,
+    contact: ContactParams = ContactParams(),
+    nsteps: int = 1,
+):
+    """Advance every env ``nsteps`` model timesteps of ``substeps`` each.
+
+    The model's integrator picks Euler with implicit damping (MuJoCo's
+    ``mj_Euler``, integrator 0) or RK4 (``mj_RungeKutta``, 1).  ``nsteps``
+    is the frame-skip loop; ``substeps`` splits the timestep for
+    penalty-contact stability.  Returns ``(qpos, qvel)``, both ``[N, ·]``.
+    """
+    check_supported(model, contact)
+    h = model.timestep / substeps
+    stepper = _rk4 if model.integrator == 1 else _euler
+    with full_fp32():
+        for _ in range(nsteps * substeps):
+            qpos, qvel = stepper(model, qpos, qvel, ctrl, contact, h)
+    return qpos, qvel

@@ -1,0 +1,29 @@
+"""Batched SPD solves for the joint-space inertia matrices.
+
+Counterpart of ``envpool_tpu/physics/linalg.py``.  The JAX version unrolls
+a Cholesky into a chain of elementwise ops over one env's matrix and clamps
+each pivot at 1e-12, so it never stops.  Unrolled over ``[N]`` tensors here
+that chain would be ~400 launches per solve; the library's batched Cholesky
+factor-and-solve over ``[N, n, n]`` is a few.
+
+On a matrix that is not SPD the factorisation stops (``info > 0``) and the
+port returns NaN for that row, where the JAX version returns the
+meaningless (huge or infinite) solution of its clamped factor.  The check stays on the device:
+nothing waits for ``info`` on the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["spd_solve"]
+
+
+def spd_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``M x = b`` row by row: ``M`` is ``[N, n, n]``, ``b`` ``[N, n]``.
+
+    Rows whose ``M`` is not SPD come out as NaN.
+    """
+    L, info = torch.linalg.cholesky_ex(M)
+    x = torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+    return torch.where((info == 0).unsqueeze(-1), x, torch.nan)

@@ -52,9 +52,13 @@ def test_spec_surface_matches_jax(kwargs):
 
 
 def test_registry_surface():
+    from envpool_tpu.core.registry import registry
+
     ported = [
         t for t in envpool_tpu.list_all_envs()
-        if t == TASK or t.startswith("Machine2600")
+        if t == TASK
+        or t.startswith(("Machine2600", "HalfCheetah-"))
+        or registry.specs[t][0].endswith(".classic_control")
     ]
     assert envpool_tpu_torch.list_all_envs() == ported
     with pytest.raises(ValueError):
