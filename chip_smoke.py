@@ -698,7 +698,19 @@ def _cartpole_margin(ts):
     )
 
 
-def _cheetah_switch(model, ps, act, frame_skip: int):
+def _cheetah_step(env, ps, act, rows, dtype):
+    """``[len(rows), nq + nv]``: qpos and qvel after one env step of the
+    given rows of a pool state, in ``dtype`` on the CPU."""
+    import torch
+
+    from envpool_tpu_torch.physics import dynamics
+
+    q, qd = (ps.env_state[k][rows].to(dtype) for k in ("qpos", "qvel"))
+    return torch.cat(dynamics.step(env.model, q, qd, act[rows].to(dtype),
+                                   env.substeps, env.contact, env.frame_skip), 1)
+
+
+def _cheetah_switch(env, ps, act):
     """``[N]`` True where a stepped HalfCheetah env comes within SWITCH_EPS
     of a switch of the penalty forces at the start of a substep (CPU)."""
     import torch
@@ -706,10 +718,10 @@ def _cheetah_switch(model, ps, act, frame_skip: int):
     from envpool_tpu_torch.physics import dynamics
 
     q, qd = ps.env_state["qpos"], ps.env_state["qvel"]
-    dist = dynamics.switch_distance(model, q)
-    for _ in range(frame_skip - 1):
-        q, qd = dynamics.step(model, q, qd, act)
-        dist = torch.minimum(dist, dynamics.switch_distance(model, q))
+    dist = dynamics.switch_distance(env.model, q)
+    for _ in range(env.frame_skip * env.substeps - 1):
+        q, qd = dynamics.step(env.model, q, qd, act, 1, env.contact)
+        dist = torch.minimum(dist, dynamics.switch_distance(env.model, q))
     return (dist < SWITCH_EPS) & ~ps.autoreset
 
 
@@ -719,10 +731,12 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     each taken on the card and on the CPU from the same pool state and
     action: float fields within ``tol * (1 + |cpu|)``, the rest equal.
     CartPole's done flags may differ only where the new state lies within
-    ``tol`` of a threshold; a HalfCheetah env that comes within SWITCH_EPS
-    of a penalty-force switch is left out (at most 1% of them).  For
-    HalfCheetah the caller allows TF32, and the physics must still run its
-    matmuls without it."""
+    ``tol`` of a threshold.  A HalfCheetah env that comes within SWITCH_EPS
+    of a penalty-force switch is left out, and one past the tolerance
+    passes only where a float64 step shows the CPU's float32 step to be
+    the one off (the card within ``tol / 2`` of it, the CPU not); at most
+    1% of the envs each.  For HalfCheetah the caller allows TF32, and the
+    physics must still run its matmuls without it."""
     import torch
 
     import envpool_tpu_torch
@@ -732,7 +746,7 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     card = _pool(device, task, n)
     cpu = Engine(envpool_tpu_torch.make_spec(task, num_envs=n, seed=SEED,
                                              device="cpu").env)
-    env = card.spec.env
+    env = cpu.env
     eng = card.engine
     gen = torch.Generator().manual_seed(SEED)
     sample = _sampler(_spec(card), n, "cpu")
@@ -751,7 +765,7 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     def rel(a, b):
         return ((a.double() - b.double()).abs() / (1 + b.double().abs())).amax(-1)
 
-    worst, skipped, flips, resets = 0.0, 0, 0, 0
+    worst, skipped, flips, resets, cpu_side = 0.0, 0, 0, 0, 0
     f64 = (0.0, 0.0, 0.0)  # worst qpos/qvel row: card-cpu, card-f64, cpu-f64
     for t in range(steps):
         act = sample(gen)
@@ -768,7 +782,7 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
             dynamics.spd_solve = solve
             matmul.fp32_precision = "ieee"
         cps, want = cpu.step(ps_cpu, {"action": act})
-        skip = (_cheetah_switch(env.model, ps_cpu, act, env.frame_skip)
+        skip = (_cheetah_switch(env, ps_cpu, act)
                 if physics else torch.zeros(n, dtype=torch.bool))
         if physics:  # the worst stepped env against a float64 step
             a, b = (torch.cat([x.env_state["qpos"].cpu(), x.env_state["qvel"].cpu()], 1)
@@ -776,27 +790,35 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
             err = rel(a, b).masked_fill(ps_cpu.autoreset | skip, 0)
             i = int(err.argmax())
             if float(err[i]) > f64[0]:
-                st = ps_cpu.env_state
-                ref = torch.cat(dynamics.step(
-                    env.model, st["qpos"][i:i + 1].double(), st["qvel"][i:i + 1].double(),
-                    act[i:i + 1].double(), nsteps=env.frame_skip), 1)[0]
+                ref = _cheetah_step(env, ps_cpu, act, [i], torch.float64)[0]
                 f64 = (float(err[i]), float(rel(a[i], ref)), float(rel(b[i], ref)))
         flip_ok = (torch.zeros(n, dtype=torch.bool) if physics
                    else _cartpole_margin(want) < tol)
         skipped += int(skip.sum())
         resets += int((want["step_type"] == 0).sum())
+        bad = torch.zeros(n, dtype=torch.bool)
         for k, w in want.items():
             g = got[k].cpu()
             if w.is_floating_point():
-                err = ((g - w).abs() / (1 + w.abs())).reshape(n, -1).amax(1)
+                err = rel(g.reshape(n, -1), w.reshape(n, -1))
                 worst = max(worst, float(err[~skip].max()))
-                _check(bool((err[~skip] <= tol).all()),
-                       f"{k} differs by {float(err[~skip].max()):.3g} at step {t}")
+                bad |= (err > tol) & ~skip
             else:
                 differ = (g != w).reshape(n, -1).any(1) & ~skip
                 flips += int((differ & flip_ok).sum()) if k == "done" else 0
                 _check(not bool((differ & ~flip_ok).any()), f"{k} differs at step {t}")
+        if physics and bool(bad.any()):
+            # Past the tolerance, the card must be within half of it of a
+            # float64 step and the CPU's float32 step must not be.
+            rows = bad.nonzero()[:, 0]
+            ref = _cheetah_step(env, ps_cpu, act, rows, torch.float64)
+            cpu_off = (rel(a[rows], ref) <= tol / 2) & (rel(b[rows], ref) > tol / 2)
+            bad[rows[cpu_off]] = False
+            cpu_side += int(cpu_off.sum())
+        _check(not bool(bad.any()),
+               f"{int(bad.sum())} envs differ by more than {tol:g} at step {t}")
     _check(skipped <= 0.01 * n * steps, f"{skipped} envs near a switch")
+    _check(cpu_side <= 0.01 * n * steps, f"{cpu_side} envs off on the CPU side")
     _check(not physics or tf32_seen == {"ieee"},
            f"TF32 inside the physics step: fp32_precision seen {tf32_seen}")
     print(
@@ -806,8 +828,10 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         f"flags that differ at a threshold: {flips}; envs left out within "
         f"{SWITCH_EPS:g} of a penalty-force switch: {skipped}"
         + (f"; on the env whose qpos/qvel differ most ({f64[0]:.3g}), a float64 "
-           f"step puts the card at {f64[1]:.3g} and the CPU at {f64[2]:.3g}; TF32 "
-           "off inside every physics step while the caller allowed it"
+           f"step puts the card at {f64[1]:.3g} and the CPU at {f64[2]:.3g}; envs "
+           f"past the tolerance where the card is within {tol / 2:g} of float64 "
+           f"and the CPU is not: {cpu_side}; TF32 off inside every physics step "
+           "while the caller allowed it"
            if physics else "")
     )
 
