@@ -8,9 +8,11 @@ frame of every 2600 machine, ``envpool_tpu_torch/csrc/machine_frame.cu``)
 and holds each against its plain PyTorch version on the card.  Then, for
 PongLite-v5 at 2048 envs, Machine2600-v0 (the 6502+TIA emulator on the
 repository's hand-built pong cart) at 1024 envs, CartPole-v1 at 16384 envs
-and HalfCheetah-v4 (the rigid-body physics) at 8192 envs, it drives the
-gymnasium, dm and functional entry points, checks the card against the
-CPU port, profiles engine steps and times a rollout.  It also times K2
+and HalfCheetah-v4, Ant-v4 and Humanoid-v4 (the rigid-body physics, the
+last two with a free base) at 8192 envs, it drives the gymnasium, dm and
+functional entry points, checks the card against the CPU port, profiles
+engine steps and times a rollout; every other Gym-MuJoCo id gets a short
+card-vs-CPU check at 256 envs.  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
 holds it to its chain bound: each frame's most emulated instructions on
 one machine times one dependent shared-memory load, measured on the card.
@@ -41,18 +43,17 @@ OUT_HW = (84, 84)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TIE_RULE = "equal everywhere except exact .5 ties, where |diff| <= 1"
-# The widths bench.py runs them at (bench.py:133, :103).
+# The widths bench.py runs them at (bench.py:133, :103, :120); Humanoid-v4
+# at Ant's width.
 N_CARTPOLE = 16384
 N_CHEETAH = 8192
+N_ANT = N_HUMANOID = 8192
+N_SHORT = 256  # the short card-vs-CPU check of the other Gym-MuJoCo ids
 # One step from the same state, |card - cpu| <= tol * (1 + |cpu|): float32
 # rounding for CartPole (tests/test_torch_classic.py), 1e-4 for the
 # physics (tests/test_torch_physics.py).
 CARTPOLE_TOL = 2e-6
-CHEETAH_TOL = 1e-4
-# A HalfCheetah env whose state comes within this of a switch of the
-# penalty forces (a contact depth crossing 0, a joint crossing its limit)
-# may land on either side on the card and on the CPU.
-SWITCH_EPS = 1e-5
+PHYSICS_TOL = 1e-4
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -332,6 +333,8 @@ def phase_throughput(device: str, task: str, n: int, steps: int,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     _check(bool((ts["step_type"] >= 0).all()), "rollout output")
+    _check(not ts["obs"].is_floating_point() or bool(torch.isfinite(ts["obs"]).all()),
+           "rollout obs not finite")
     return steps * n / dt, fused_pool_resize.launches - before
 
 
@@ -351,10 +354,11 @@ def _launches(events) -> int:
 
 
 def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
-                  kernel: str | None = None, **make_kwargs) -> None:
+                  kernel: str | None = None, **make_kwargs) -> dict:
     """``torch.profiler`` over ``steps`` engine steps after ``warmup`` ones:
     device time, idle share, launches per step, the kernels that take the
-    most time and, given a kernel's name, its share of the device time."""
+    most time and, given a kernel's name, its share of the device time.
+    Returns the first three."""
     import torch
 
     pool = _pool(device, task, n, **make_kwargs)
@@ -401,6 +405,9 @@ def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / steps / 1e3:8.4f} "
               f"{e.count / steps:6.0f}  {e.key[:90]}")
+    return {"device_ms": device_us / steps / 1e3,
+            "idle": 1 - device_us / 1e6 / wall,
+            "launches": launches / steps}
 
 
 # ---------------------------------------------------------------------------
@@ -698,49 +705,110 @@ def _cartpole_margin(ts):
     )
 
 
-def _cheetah_step(env, ps, act, rows, dtype):
-    """``[len(rows), nq + nv]``: qpos and qvel after one env step of the
-    given rows of a pool state, in ``dtype`` on the CPU."""
+def _physics_f64(env, ps, act, device):
+    """``[N, nq + nv]``: qpos and qvel after one env step of every row of a
+    pool state in float64 (on the card, which runs float64 at its float32
+    rate), on the CPU."""
     import torch
 
     from envpool_tpu_torch.physics import dynamics
 
-    q, qd = (ps.env_state[k][rows].to(dtype) for k in ("qpos", "qvel"))
-    return torch.cat(dynamics.step(env.model, q, qd, act[rows].to(dtype),
-                                   env.substeps, env.contact, env.frame_skip), 1)
+    q, qd = (ps.env_state[k].to(device, torch.float64) for k in ("qpos", "qvel"))
+    out = dynamics.step(env.model, q, qd, act.to(device, torch.float64),
+                        env.substeps, env.contact, env.frame_skip)
+    return torch.cat(out, 1).cpu()
 
 
-def _cheetah_switch(env, ps, act):
-    """``[N]`` True where a stepped HalfCheetah env comes within SWITCH_EPS
-    of a switch of the penalty forces at the start of a substep (CPU)."""
+def _quantiles(x) -> str:
+    return "/".join(f"{float(v):.3g}" for v in np.quantile(x.numpy(), [0.99, 0.999, 1.0]))
+
+
+def _physics_crossed(env, ps, act, device):
+    """``[N]`` True where the card's and the CPU's substeps of one env step
+    from the same state put a stepped env on different sides of a switch
+    of the penalty forces (a contact's depth crossing 0, a joint crossing
+    its limit): the forces jump there, so the two may part by far more
+    than rounding."""
     import torch
 
     from envpool_tpu_torch.physics import dynamics
 
+    model = env.model
     q, qd = ps.env_state["qpos"], ps.env_state["qvel"]
-    dist = dynamics.switch_distance(env.model, q)
+    cq, cqd, cact = q.to(device), qd.to(device), act.to(device)
+    crossed = torch.zeros(q.shape[0], dtype=torch.bool)
     for _ in range(env.frame_skip * env.substeps - 1):
-        q, qd = dynamics.step(env.model, q, qd, act, 1, env.contact)
-        dist = torch.minimum(dist, dynamics.switch_distance(env.model, q))
-    return (dist < SWITCH_EPS) & ~ps.autoreset
+        q, qd = dynamics.step(model, q, qd, act, 1, env.contact)
+        cq, cqd = dynamics.step(model, cq, cqd, cact, 1, env.contact)
+        sides = dynamics.switch_sides(model, cq).cpu()
+        crossed |= (sides != dynamics.switch_sides(model, q)).any(1)
+    return crossed & ~ps.autoreset
+
+
+def _bounds_margin(x, *bounds):
+    """``[N]`` distance of ``x`` ``[N]`` or ``[N, k]`` to the nearest of
+    ``bounds`` (infinite bounds are never near)."""
+    import torch
+
+    x = x.reshape(x.shape[0], -1)
+    return torch.stack([(x - b).abs().amin(1) for b in bounds], 1).amin(1)
+
+
+def _termination_margin(env, state):
+    """``[N]`` distance of each new physics state to the bound on which its
+    task terminates (infinite where the task never terminates)."""
+    import torch
+
+    from envpool_tpu_torch.physics.dynamics import site_positions
+
+    q, qd = state["qpos"], state["qvel"]
+    kind = type(env).__name__
+    if kind in ("HopperEnv", "Walker2dEnv"):
+        return torch.minimum(
+            torch.minimum(_bounds_margin(q[:, 1], *env.HEALTHY_Z),
+                          _bounds_margin(q[:, 2], *env.HEALTHY_ANGLE)),
+            _bounds_margin(torch.cat([q[:, 2:], qd], 1), *env.HEALTHY_STATE))
+    if kind == "AntEnv":
+        return _bounds_margin(q[:, 2], 0.2, 1.0)
+    if kind == "HumanoidEnv":
+        return _bounds_margin(q[:, 2], 1.0, 2.0)
+    if kind == "InvertedPendulumEnv":
+        return _bounds_margin(q[:, 1].abs(), 0.2)
+    if kind == "InvertedDoublePendulumEnv":
+        return _bounds_margin(site_positions(env.model, q)[:, env._tip, 2], 1.0)
+    return torch.full((q.shape[0],), float("inf"))
 
 
 def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
-                            steps: int, tol: float) -> None:
+                            steps: int, tol: float) -> dict:
     """After ``warmup`` random steps on the card, ``steps`` engine steps
     each taken on the card and on the CPU from the same pool state and
-    action: float fields within ``tol * (1 + |cpu|)``, the rest equal.
-    CartPole's done flags may differ only where the new state lies within
-    ``tol`` of a threshold.  A HalfCheetah env that comes within SWITCH_EPS
-    of a penalty-force switch is left out, and one past the tolerance
-    passes only where a float64 step shows the CPU's float32 step to be
-    the one off (the card within ``tol / 2`` of it, the CPU not); at most
-    1% of the envs each.  For HalfCheetah the caller allows TF32, and the
-    physics must still run its matmuls without it."""
+    action: float fields within ``tol * (1 + |cpu|)``, the rest equal.  A
+    done flag may differ only where the new state lies within ``tol`` of
+    its task's termination bound (and then the reward and discount with
+    it).
+
+    For the physics, the new state itself is held to ``tol``: an env whose
+    substeps fall on different sides of a penalty-force switch on the card
+    and on the CPU is left out, and every stepped env is also stepped in
+    float64, so that an env past the tolerance passes only where that step
+    shows a float32 step off by more than ``tol / 2`` (each at most 1% of
+    the envs, :func:`check_shares`).  What the env derives from its new
+    state (obs, reward, done) the CPU computes from the card's new state,
+    since an observation such as a contact force (``kp`` times a depth)
+    scales the state's rounding by 1e4; an obs past the tolerance passes
+    only where the float64 obs of that state shows a float32 obs off by
+    more than ``tol / 2``.  The caller allows TF32, and the physics must
+    still run its matmuls without it.
+
+    Returns the counts it printed and each stepped env's distance to
+    float64 on the card and on the CPU, of its state and of its obs, for
+    :func:`check_shares` and :func:`check_f64_parity`."""
     import torch
 
     import envpool_tpu_torch
     from envpool_tpu_torch.core.engine import Engine, PoolState, _tree_map
+    from envpool_tpu_torch.envs.mujoco_gym import base as gym_base
     from envpool_tpu_torch.physics import dynamics
 
     card = _pool(device, task, n)
@@ -753,20 +821,28 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
     for _ in range(warmup):
         ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
-    physics = task.startswith("HalfCheetah")
+    physics = isinstance(env, gym_base.MujocoGymEnv)
     matmul = torch.backends.cuda.matmul
     tf32_seen = set()
     solve = dynamics.spd_solve
+    not_spd = [0]
 
     def spy(M, b):
+        # On the card: every matrix the step solves must be SPD (a row
+        # that is not comes out NaN).
         tf32_seen.add(matmul.fp32_precision)
-        return solve(M, b)
+        x = solve(M, b)
+        not_spd[0] += int((~torch.isfinite(x)).any(-1).sum())
+        return x
 
     def rel(a, b):
         return ((a.double() - b.double()).abs() / (1 + b.double().abs())).amax(-1)
 
-    worst, skipped, flips, resets, cpu_side = 0.0, 0, 0, 0, 0
+    worst, skipped, flips, resets, arbitrated, terms = 0.0, 0, 0, 0, 0, 0
     f64 = (0.0, 0.0, 0.0)  # worst qpos/qvel row: card-cpu, card-f64, cpu-f64
+    # Each stepped env's distance to float64: its state, and its obs.
+    to_f64 = {"card": [], "cpu": [], "card_obs": [], "cpu_obs": []}
+    obs_arbitrated = 0
     for t in range(steps):
         act = sample(gen)
         ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), f) for f in (
@@ -781,73 +857,137 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         finally:
             dynamics.spd_solve = solve
             matmul.fp32_precision = "ieee"
-        cps, want = cpu.step(ps_cpu, {"action": act})
-        skip = (_cheetah_switch(env, ps_cpu, act)
-                if physics else torch.zeros(n, dtype=torch.bool))
-        if physics:  # the worst stepped env against a float64 step
-            a, b = (torch.cat([x.env_state["qpos"].cpu(), x.env_state["qvel"].cpu()], 1)
-                    for x in (ps, cps))
-            err = rel(a, b).masked_fill(ps_cpu.autoreset | skip, 0)
+        if physics:
+            # The physics state: the card's float32 step against the CPU's,
+            # and both against a float64 step.
+            skip = _physics_crossed(env, ps_cpu, act, device)
+            stepped = ~(ps_cpu.autoreset | skip)
+            q, qd = ps_cpu.env_state["qpos"], ps_cpu.env_state["qvel"]
+            mine = dynamics.step(env.model, q, qd, act, env.substeps, env.contact,
+                                 env.frame_skip)
+            theirs = tuple(ps.env_state[k].cpu() for k in ("qpos", "qvel"))
+            a, b = torch.cat(theirs, 1), torch.cat(mine, 1)
+            ref = _physics_f64(env, ps_cpu, act, device)
+            card64, cpu64 = rel(a, ref), rel(b, ref)
+            to_f64["card"].append(card64[stepped])
+            to_f64["cpu"].append(cpu64[stepped])
+            err = rel(a, b).masked_fill(~stepped, 0)
             i = int(err.argmax())
             if float(err[i]) > f64[0]:
-                ref = _cheetah_step(env, ps_cpu, act, [i], torch.float64)[0]
-                f64 = (float(err[i]), float(rel(a[i], ref)), float(rel(b[i], ref)))
-        flip_ok = (torch.zeros(n, dtype=torch.bool) if physics
-                   else _cartpole_margin(want) < tol)
+                f64 = (float(err[i]), float(card64[i]), float(cpu64[i]))
+            state_bad = (err > tol) & ~(torch.maximum(card64, cpu64) > tol / 2)
+            arbitrated += int(((err > tol) & ~state_bad).sum())
+            _check(not bool(state_bad.any()),
+                   f"{int(state_bad.sum())} envs' physics states differ by more than "
+                   f"{tol:g} at step {t}, with float32 within {tol / 2:g} of float64")
+            # Everything the env derives from its new state (obs, reward,
+            # done): the CPU's own functions on the card's new state.
+            step_fn = gym_base.phys_step
+            gym_base.phys_step = lambda *args, **kwargs: theirs
+            try:
+                cps, want = cpu.step(ps_cpu, {"action": act})
+            finally:
+                gym_base.phys_step = step_fn
+            flip_ok = _termination_margin(env, cps.env_state) < tol
+            obs64 = env.observe(*(x.double() for x in theirs))
+        else:
+            skip = torch.zeros(n, dtype=torch.bool)
+            cps, want = cpu.step(ps_cpu, {"action": act})
+            flip_ok = _cartpole_margin(want) < tol
+        flipped = (got["done"].cpu() != want["done"]) & flip_ok & ~skip
+        flips += int(flipped.sum())
         skipped += int(skip.sum())
         resets += int((want["step_type"] == 0).sum())
+        terms += int((want["done"] & ~want["trunc"]).sum())
         bad = torch.zeros(n, dtype=torch.bool)
         for k, w in want.items():
             g = got[k].cpu()
+            _check(not w.is_floating_point() or bool(torch.isfinite(g).all()),
+                   f"{k} not finite on the card at step {t}")
+            excused = skip | flipped if k in ("reward", "discount") else skip
             if w.is_floating_point():
                 err = rel(g.reshape(n, -1), w.reshape(n, -1))
-                worst = max(worst, float(err[~skip].max()))
-                bad |= (err > tol) & ~skip
+                worst = max(worst, float(err[~excused].max()))
+                past = (err > tol) & ~excused
+                if physics and k == "obs":
+                    # Contact forces in an obs (kp times a depth, kd times a
+                    # speed) carry float32's rounding past the tolerance on
+                    # some states; there float64 shows a float32 obs off.
+                    card_o, cpu_o = rel(g, obs64), rel(w, obs64)
+                    to_f64["card_obs"].append(card_o[~skip])
+                    to_f64["cpu_obs"].append(cpu_o[~skip])
+                    off = past & (torch.maximum(card_o, cpu_o) > tol / 2)
+                    obs_arbitrated += int(off.sum())
+                    past &= ~off
+                bad |= past
             else:
                 differ = (g != w).reshape(n, -1).any(1) & ~skip
-                flips += int((differ & flip_ok).sum()) if k == "done" else 0
-                _check(not bool((differ & ~flip_ok).any()), f"{k} differs at step {t}")
-        if physics and bool(bad.any()):
-            # Past the tolerance, the card must be within half of it of a
-            # float64 step and the CPU's float32 step must not be.
-            rows = bad.nonzero()[:, 0]
-            ref = _cheetah_step(env, ps_cpu, act, rows, torch.float64)
-            cpu_off = (rel(a[rows], ref) <= tol / 2) & (rel(b[rows], ref) > tol / 2)
-            bad[rows[cpu_off]] = False
-            cpu_side += int(cpu_off.sum())
+                if k in ("done", "step_type"):
+                    differ &= ~flipped
+                _check(not bool(differ.any()), f"{k} differs at step {t}")
         _check(not bool(bad.any()),
                f"{int(bad.sum())} envs differ by more than {tol:g} at step {t}")
-    _check(skipped <= 0.01 * n * steps, f"{skipped} envs near a switch")
-    _check(cpu_side <= 0.01 * n * steps, f"{cpu_side} envs off on the CPU side")
+    f64s = {k: torch.cat(v) if physics else torch.zeros(0) for k, v in to_f64.items()}
     _check(not physics or tf32_seen == {"ieee"},
            f"TF32 inside the physics step: fp32_precision seen {tf32_seen}")
+    _check(not_spd[0] == 0, f"{not_spd[0]} matrices of the step not SPD on the card")
     print(
         f"{task} card vs CPU, {n} envs x {steps} steps from the same states "
-        f"(after {warmup} warm-up steps, {resets} resets among them): largest "
-        f"|card - cpu| / (1 + |cpu|) = {worst:.3g} (tolerance {tol:g}); done "
-        f"flags that differ at a threshold: {flips}; envs left out within "
-        f"{SWITCH_EPS:g} of a penalty-force switch: {skipped}"
+        f"(after {warmup} warm-up steps; {resets} resets, {terms} terminations "
+        f"among them): largest |card - cpu| / (1 + |cpu|) = {worst:.3g} "
+        f"(tolerance {tol:g}); done flags that differ at a threshold: {flips}; "
+        f"envs left out on different sides of a penalty-force switch: {skipped}"
         + (f"; on the env whose qpos/qvel differ most ({f64[0]:.3g}), a float64 "
-           f"step puts the card at {f64[1]:.3g} and the CPU at {f64[2]:.3g}; envs "
-           f"past the tolerance where the card is within {tol / 2:g} of float64 "
-           f"and the CPU is not: {cpu_side}; TF32 off inside every physics step "
-           "while the caller allowed it"
+           f"step puts the card at {f64[1]:.3g} and the CPU at {f64[2]:.3g}; "
+           f"envs past the tolerance where float32 is off float64: state "
+           f"{arbitrated}, obs {obs_arbitrated}; TF32 off inside every physics step "
+           "while the caller allowed it; every matrix solved on the card SPD"
            if physics else "")
     )
+    return {"worst": worst, "flips": flips, "skipped": skipped, "checked": n * steps,
+            "arbitrated": arbitrated, "obs_arbitrated": obs_arbitrated, **f64s}
 
 
-def phase_spd_solve(device: str, n: int) -> None:
-    """The physics' batched SPD solve alone at HalfCheetah's shape
-    (``[n, 9, 9]``): its launches and device time per call, and its
-    residual on random SPD matrices."""
+def check_shares(what: str, stats: list) -> None:
+    """Of the envs stepped in the card-vs-CPU phases ``stats``, at most 1%
+    left out across a penalty-force switch and at most 1% whose state
+    passed only because float64 shows float32 off there."""
+    checked = sum(v["checked"] for v in stats)
+    for key, why in (("skipped", "on different sides of a penalty-force switch"),
+                     ("arbitrated", "past the tolerance where float32 is off float64")):
+        count = sum(v[key] for v in stats)
+        _check(count <= 0.01 * checked, f"{what}: {count} of {checked} envs {why}")
+
+
+def check_f64_parity(what: str, card64, cpu64, tol: float) -> None:
+    """Over many stepped envs, the card's float32 steps are as close to a
+    float64 step as the CPU's: the 99th and 99.9th percentiles of the
+    distance within 2x (plus 1e-6), the count past ``tol / 2`` within 1.5x
+    (plus 5)."""
+    qc, qp = (np.quantile(x.numpy(), [0.99, 0.999]) for x in (card64, cpu64))
+    past = [int((x > tol / 2).sum()) for x in (card64, cpu64)]
+    print(f"{what}: distance of float32 to float64 over {len(card64)} "
+          f"envs (99th/99.9th percentile/max): card "
+          f"{_quantiles(card64)}, CPU {_quantiles(cpu64)}; past {tol / 2:g}: "
+          f"card {past[0]}, CPU {past[1]}")
+    _check(bool((qc <= 2 * qp + 1e-6).all()),
+           f"{what}: the card's float32 steps are farther from float64 than the CPU's")
+    _check(past[0] <= 1.5 * past[1] + 5,
+           f"{what}: more of the card's float32 steps past {tol / 2:g} of float64")
+
+
+def phase_spd_solve(device: str, n: int, nv: int) -> None:
+    """The physics' batched SPD solve alone at ``[n, nv, nv]``: its
+    launches and device time per call, and its residual on random SPD
+    matrices."""
     import torch
 
     from envpool_tpu_torch.physics.linalg import spd_solve
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    a = torch.randn(n, 9, 9, generator=gen, device=device)
-    M = a @ a.transpose(1, 2) + torch.eye(9, device=device)
-    b = torch.randn(n, 9, generator=gen, device=device)
+    a = torch.randn(n, nv, nv, generator=gen, device=device)
+    M = a @ a.transpose(1, 2) + torch.eye(nv, device=device)
+    b = torch.randn(n, nv, generator=gen, device=device)
     x = spd_solve(M, b)
     res = float(((M @ x[..., None])[..., 0] - b).abs().max())
     _check(res < 1e-3, f"spd_solve residual {res}")
@@ -859,8 +999,9 @@ def phase_spd_solve(device: str, n: int) -> None:
         torch.cuda.synchronize()
     events = prof.key_averages()
     names = sorted({e.key[:40] for e in _device_events(events)})
-    print(f"spd_solve at ({n}, 9, 9): {ms:.4f} ms per call, {_launches(events)} "
-          f"kernel launches ({'; '.join(names)}); max residual {res:.3g}")
+    print(f"spd_solve at ({n}, {nv}, {nv}): {ms:.4f} ms per call, "
+          f"{_launches(events)} kernel launches ({'; '.join(names)}); max "
+          f"residual {res:.3g}")
 
 
 def main() -> int:
@@ -869,7 +1010,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    import envpool_tpu_torch  # noqa: F401  (fails outside the repository)
+    import envpool_tpu_torch  # (fails outside the repository)
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
 
@@ -899,13 +1040,16 @@ def main() -> int:
     print(f"K1 launches on the PongLite-v5 path: {k1_launches}")
     phase_card_vs_cpu(device, "PongLite-v5", 8, 100, max_episode_steps=150)
     phase_profile(device, "PongLite-v5", N_ENVS, 8, warmup=4)
-    steps_per_s, k1_run = phase_throughput(device, "PongLite-v5", N_ENVS, 128)
+    # The rollouts of PongLite-v5 (64 steps) and CartPole-v1 (512) are
+    # shorter than bench.py's, to leave the script's time to the physics.
+    pong_steps = 64
+    steps_per_s, k1_run = phase_throughput(device, "PongLite-v5", N_ENVS, pong_steps)
     # one launch for the reset, then one per branch of every step
-    per_step = (k1_run - 1) / 128
+    per_step = (k1_run - 1) / pong_steps
     _check(per_step == 2, f"K1 launches per env step {per_step}, expected 2")
     print(f"K1 launches per env step: {per_step:g} (step branch + reset branch)")
     print(
-        f"PongLite-v5 functional rollout, {N_ENVS} envs x 128 steps: "
+        f"PongLite-v5 functional rollout, {N_ENVS} envs x {pong_steps} steps: "
         f"{steps_per_s:,.0f} env-steps/s = {steps_per_s * 4:,.0f} frames/s "
         f"(frame_skip 4) on {card}"
     )
@@ -944,30 +1088,58 @@ def main() -> int:
         f"frames/s (35 per env step) on {card}"
     )
 
-    # -- CartPole-v1 and HalfCheetah-v4: no Pallas kernel on their path ----
+    # -- CartPole-v1 and the Gym-MuJoCo physics: no Pallas kernel on their path
+    from envpool_tpu_torch.core.registry import registry
+
     for task, n, episode, tol, rollout_steps in (
-        ("CartPole-v1", N_CARTPOLE, 15, CARTPOLE_TOL, 1024),
-        ("HalfCheetah-v4", N_CHEETAH, 20, CHEETAH_TOL, 128),
+        ("CartPole-v1", N_CARTPOLE, 15, CARTPOLE_TOL, 512),
+        ("HalfCheetah-v4", N_CHEETAH, 20, PHYSICS_TOL, 128),
+        ("Ant-v4", N_ANT, 10, PHYSICS_TOL, 128),
+        ("Humanoid-v4", N_HUMANOID, 10, PHYSICS_TOL, 32),
     ):
         machine_frame.launches = 0
         fused_pool_resize.launches = 0
         seen = phase_float_adapters(device, task, n, episode)
-        _check(fused_pool_resize.launches == machine_frame.launches == 0,
-               f"{task} launched K1 or K2")
         _check(task != "CartPole-v1" or seen["terminated"] > 0,
                "no CartPole termination")
         _check(task != "HalfCheetah-v4" or (seen["terminated"], seen["truncated"]) == (0, n),
                "HalfCheetah ends its episodes by truncation alone")
-        phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3, tol=tol)
-        phase_profile(device, task, n, 4, warmup=2)
-        if task == "HalfCheetah-v4":
-            phase_spd_solve(device, n)
-        task_steps, k1_run = phase_throughput(device, task, n, rollout_steps)
-        _check(k1_run == 0, f"{task} rollout launched K1")
+        vs = phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3, tol=tol)
+        check_shares(task, [vs])
+        if task != "CartPole-v1":
+            check_f64_parity(f"{task} state", vs["card"], vs["cpu"], tol)
+            check_f64_parity(f"{task} obs", vs["card_obs"], vs["cpu_obs"], tol)
+        prof = phase_profile(device, task, n, 4, warmup=2)
+        if task != "CartPole-v1":
+            nv = envpool_tpu_torch.make_spec(task, device="cpu").env.model.nv
+            phase_spd_solve(device, n, nv)
+        task_steps, _ = phase_throughput(device, task, n, rollout_steps)
+        _check(fused_pool_resize.launches == machine_frame.launches == 0,
+               f"{task} launched K1 or K2")
         print(
-            f"{task} functional rollout, {n} envs x {rollout_steps} steps: "
-            f"{task_steps:,.0f} env-steps/s on {card}"
+            f"{task} at {n} envs on {card}: functional rollout of {rollout_steps} "
+            f"steps {task_steps:,.0f} env-steps/s; engine step {prof['launches']:.0f} "
+            f"kernel launches, {prof['device_ms']:.3f} device ms, idle share "
+            f"{prof['idle']:.3f}; K1 and K2 launched 0 times"
         )
+
+    # -- every other new Gym-MuJoCo id: a short card-vs-CPU check ----------
+    short = [t for t, (path, _, _) in registry.specs.items()
+             if path.endswith(".mujoco_gym") and not t.startswith("HalfCheetah")
+             and t not in ("Ant-v4", "Humanoid-v4")]
+    machine_frame.launches = 0
+    fused_pool_resize.launches = 0
+    checks = [phase_float_card_vs_cpu(device, task, N_SHORT, warmup=10, steps=3,
+                                      tol=PHYSICS_TOL) for task in short]
+    check_shares(f"the {len(short)} short checks", checks)
+    for what in ("", "_obs"):
+        check_f64_parity(f"the {len(short)} short checks, {what[1:] or 'state'}",
+                         *(torch.cat([v[k + what] for v in checks]) for k in ("card", "cpu")),
+                         PHYSICS_TOL)
+    _check(fused_pool_resize.launches == machine_frame.launches == 0,
+           "a Gym-MuJoCo id launched K1 or K2")
+    print(f"short card-vs-CPU checks of {len(short)} Gym-MuJoCo ids at "
+          f"{N_SHORT} envs passed; K1 and K2 launched 0 times")
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -23,7 +23,7 @@ import torch
 from ...core import rng
 from ...core.env import EnvOut, TorchEnv
 from ...core.specs import ArraySpec
-from ...physics.dynamics import ContactParams, check_supported
+from ...physics.dynamics import ContactParams, check_supported, full_fp32
 from ...physics.dynamics import step as phys_step
 from ...physics.model import load_model
 
@@ -33,6 +33,10 @@ class MujocoGymEnv(TorchEnv):
 
     XML = ""
     FRAME_SKIP = 5
+    # The default reset adds qvel noise drawn normal with standard
+    # deviation ``reset_noise_scale`` (HalfCheetah, Ant and the double
+    # pendulum); with this set, uniform within ``±reset_noise_scale``.
+    UNIFORM_QVEL_NOISE = False
 
     def __init__(self, config):
         super().__init__(config)
@@ -90,6 +94,28 @@ class MujocoGymEnv(TorchEnv):
 
     # -- per-task hooks ----------------------------------------------------
 
+    def reset_draws(self, sub):
+        """``qpos_noise`` ``[N, nq]`` uniform in ``[-s, s)`` and
+        ``qvel_noise`` ``[N, nv]``, standard normal or, with
+        ``UNIFORM_QVEL_NOISE``, uniform in ``[-s, s)``; ``s`` is the
+        ``reset_noise_scale``.  Gym adds the qpos noise to every qpos
+        coordinate, a free joint's quaternion included."""
+        s = float(self.config["reset_noise_scale"])
+        nq, nv = self.model.nq, self.model.nv
+        if self.UNIFORM_QVEL_NOISE:
+            qvel = rng.uniform_range(sub, -s, s, nv, slot=nq)
+        else:
+            qvel = rng.normal(sub, nq, nv)
+        return {"qpos_noise": rng.uniform_range(sub, -s, s, nq), "qvel_noise": qvel}
+
+    def reset_qpos_qvel(self, draws):
+        """The reset state ``(qpos [N, nq], qvel [N, nv])`` from the draws
+        of :meth:`reset_draws` (the JAX env's ``reset_qpos_qvel``)."""
+        qvel = draws["qvel_noise"]
+        if not self.UNIFORM_QVEL_NOISE:
+            qvel = float(self.config["reset_noise_scale"]) * qvel
+        return self._qpos0 + draws["qpos_noise"], qvel
+
     def observe(self, qpos, qvel):
         raise NotImplementedError
 
@@ -135,17 +161,6 @@ class MujocoGymEnv(TorchEnv):
             }
         return {"action": ArraySpec(np.float32, (self.model.nu,), low, high)}
 
-    def reset_draws(self, sub):
-        """``qpos_noise`` ``[N, nq]`` uniform in ``[-s, s)`` and
-        ``qvel_noise`` ``[N, nv]`` standard normal, with ``s`` the
-        ``reset_noise_scale``."""
-        s = float(self.config["reset_noise_scale"])
-        nq = self.model.nq
-        return {
-            "qpos_noise": rng.uniform_range(sub, -s, s, nq),
-            "qvel_noise": rng.normal(sub, nq, self.model.nv),
-        }
-
     def _obs_dict(self, st, info):
         out = {
             "obs": self.observe(st["qpos"], st["qvel"]),
@@ -157,33 +172,31 @@ class MujocoGymEnv(TorchEnv):
         return out
 
     def reset_env(self, draws):
-        s = float(self.config["reset_noise_scale"])
-        qpos = self._qpos0 + draws["qpos_noise"]
-        qvel = s * draws["qvel_noise"]
-        st = {"qpos": qpos, "qvel": qvel, "qpos0": qpos, "qvel0": qvel}
-        zero = qpos.new_zeros(qpos.shape[0])
-        info = {k.replace("info:", ""): zero for k in self.extra_info_spec()}
-        return st, self._obs_dict(st, info)
+        # Observations and rewards take tree passes and einsums too, so
+        # they run without TF32 as the physics step does.
+        with full_fp32():
+            qpos, qvel = self.reset_qpos_qvel(draws)
+            st = {"qpos": qpos, "qvel": qvel, "qpos0": qpos, "qvel0": qvel}
+            zero = qpos.new_zeros(qpos.shape[0])
+            info = {k.replace("info:", ""): zero for k in self.extra_info_spec()}
+            return st, self._obs_dict(st, info)
 
     def step_env(self, state, action, draws):
         action = action.reshape(-1, self.model.nu).to(torch.float32)
         qpos, qvel = state["qpos"], state["qvel"]
-        new_qpos, new_qvel = phys_step(
-            self.model, qpos, qvel, action, self.substeps, self.contact,
-            self.frame_skip,
-        )
-        before = {"qpos": qpos, "qvel": qvel}
-        after = {"qpos": new_qpos, "qvel": new_qvel}
-        reward, terminated, info = self.reward_done(before, after, action)
-        st = {
-            "qpos": new_qpos,
-            "qvel": new_qvel,
-            "qpos0": state["qpos0"],
-            "qvel0": state["qvel0"],
-        }
-        return EnvOut(
-            state=st,
-            obs=self._obs_dict(st, info),
-            reward=reward,
-            terminated=terminated,
-        )
+        with full_fp32():
+            new_qpos, new_qvel = phys_step(
+                self.model, qpos, qvel, action, self.substeps, self.contact,
+                self.frame_skip,
+            )
+            before = {"qpos": qpos, "qvel": qvel}
+            after = {"qpos": new_qpos, "qvel": new_qvel}
+            reward, terminated, info = self.reward_done(before, after, action)
+            st = {
+                "qpos": new_qpos,
+                "qvel": new_qvel,
+                "qpos0": state["qpos0"],
+                "qvel0": state["qvel0"],
+            }
+            obs = self._obs_dict(st, info)
+        return EnvOut(state=st, obs=obs, reward=reward, terminated=terminated)

@@ -7,15 +7,16 @@ Counterpart of the einsum path of ``envpool_tpu/physics/dynamics.py``:
 One tree pass (``kinematics.fk_dof``) emits every dof's world-frame screw;
 with the static masks of ``structure.dof_structure`` the Jacobians, the
 velocities, the bias accelerations (MuJoCo's RNE terms, by the product
-rule through the screws' time derivatives), the mass matrix and the
-penalty contacts against the ground plane are closed-form batched products
-over ``[N, ...]`` tensors.  Euler with implicit damping and RK4 integrate.
+rule through the screws' time derivatives), the mass matrix, the penalty
+contacts against the ground plane, MuJoCo's inertia-box fluid drag and the
+fixed tendons' springs and dampers are closed-form batched products over
+``[N, ...]`` tensors.  Euler with implicit damping and RK4 integrate.
 
-Left out, each raising ``NotImplementedError``: fluid drag, tendons,
-affine-bias actuators, body-body contact pairs and the constraint solver
-(``contact_solver="mujoco"``).  The JAX package's lane-parallel scalar
-backend (``physics/scalar.py``) and its ``custom_vmap`` dispatch are a TPU
-layout and are not ported.
+Left out, each raising ``NotImplementedError`` (:func:`check_supported`):
+spatial tendons, affine-bias actuators, tendon transmissions, body-body
+contact pairs and the constraint solver (``contact_solver="mujoco"``).
+The JAX package's lane-parallel scalar backend (``physics/scalar.py``)
+and its ``custom_vmap`` dispatch are a TPU layout and are not ported.
 
 Matmuls run in full float32: :func:`step` turns TF32 off while it runs, as
 the JAX code forces float32 matmul precision in its step.
@@ -28,12 +29,13 @@ from typing import NamedTuple
 
 import torch
 
-from .kinematics import fk, fk_dof, integrate_qpos, model_tensors
+from .kinematics import _mv, fk, fk_dof, integrate_qpos, model_tensors
 from .linalg import spd_solve
 from .model import PhysModel
 
 __all__ = [
     "ContactParams",
+    "body_com_positions",
     "body_positions",
     "bias_forces",
     "contact_depths",
@@ -42,7 +44,7 @@ __all__ = [
     "mass_matrix",
     "site_positions",
     "step",
-    "switch_distance",
+    "switch_sides",
 ]
 
 _KLIM = 300.0  # soft joint-limit stiffness (dynamics.py::_passive_forces)
@@ -67,12 +69,8 @@ class ContactParams(NamedTuple):
 def check_supported(model: PhysModel, contact: ContactParams) -> None:
     """Raise ``NotImplementedError`` for what the port's dynamics lack."""
     missing = []
-    if model.density > 0 or model.viscosity > 0:
-        missing.append("fluid drag")
-    if len(model.ten_fixed) or (
-        model.ten_spatial_sites is not None and len(model.ten_spatial_sites)
-    ):
-        missing.append("tendons")
+    if model.ten_spatial_sites is not None and len(model.ten_spatial_sites):
+        missing.append("spatial tendons")
     if model.act_biastype is not None and model.act_biastype.any():
         missing.append("affine-bias actuators")
     if model.act_trntype is not None and model.act_trntype.any():
@@ -117,6 +115,14 @@ def body_positions(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
     return fk(model, q)[1]
 
 
+def body_com_positions(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
+    """World positions of the bodies' centres of mass (MuJoCo's ``xipos``):
+    ``[N, nb, 3]``."""
+    Rs, ps = fk(model, q)
+    mt = model_tensors(model, q.device, q.dtype)
+    return ps + torch.einsum("nbij,bj->nbi", Rs, mt.body_ipos)
+
+
 def _contact_points(mt, Rs, ps):
     """World positions of the contact spheres' centers: ``[N, nc, 3]``."""
     cb = mt.con_body
@@ -130,21 +136,16 @@ def contact_depths(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
     return mt.con_radius - _contact_points(mt, *fk(model, q))[..., 2]
 
 
-def switch_distance(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
-    """Each env's distance ``[N]`` to the nearest switch of the penalty
-    forces: a contact's depth crossing 0, or a limited joint crossing its
-    range.  Two float32 runs of one step may fall on different sides of a
-    switch that lies within their rounding error of the state."""
+def switch_sides(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
+    """On which side of every switch of the penalty forces each env lies:
+    ``[N, nc + 2·nj]`` bools over the contacts and the hinge and slide
+    joints: a contact in the ground (depth > 0), a joint below and above
+    its range.  The forces jump where one flips, so two float32 runs of
+    one step that put an env on different sides of a switch in a substep
+    may part by far more than rounding."""
     mt = model_tensors(model, q.device, q.dtype)
     qs = q[:, mt.hs_qadr]
-    return torch.cat(
-        [
-            contact_depths(model, q).abs(),
-            (qs - mt.hs_lo).abs(),
-            (qs - mt.hs_hi).abs(),
-        ],
-        1,
-    ).amin(1)
+    return torch.cat([contact_depths(model, q) > 0, qs < mt.hs_lo, qs > mt.hs_hi], 1)
 
 
 class _Kin(NamedTuple):
@@ -174,6 +175,19 @@ def _point_vel(mask_T, tv, wv, wxc, x):
     """
     om = mask_T @ wv
     return mask_T @ tv + torch.linalg.cross(om, x) - mask_T @ wxc, om
+
+
+def _vel_from_kin(mt, k: _Kin, qd):
+    """Every velocity-level quantity of one tree pass: ``(v_com [N, nb, 3],
+    ω [N, nb, 3], v_con [N, nc, 3])``, the velocities of the body CoMs,
+    the bodies' angular velocities and those of the contact sphere
+    centres, each linear in qd (JAX's ``_vel_observables``)."""
+    tv = qd[..., None] * k.t
+    wv = qd[..., None] * k.w
+    wxc = torch.linalg.cross(wv, k.c)
+    v_com, omega = _point_vel(mt.body_mask_T, tv, wv, wxc, k.x_com)
+    v_con, _ = _point_vel(mt.con_mask_T, tv, wv, wxc, k.centers)
+    return v_com, omega, v_con
 
 
 def _jac_from_kin(mt, k: _Kin):
@@ -237,15 +251,21 @@ def _bias_accels(mt, k: _Kin, qd):
     return v_com, omega, a_com, omega_dot
 
 
+def _body_wrench_tau(f, t, Jp, Jr):
+    """Generalized force of world-frame forces ``f`` at the body CoMs and
+    torques ``t`` on the bodies, ``[N, nb, 3]`` each: ``Jpᵀ f + Jrᵀ t``."""
+    return torch.einsum("nbk,nibk->ni", f, Jp) + torch.einsum(
+        "nbk,nibk->ni", t, Jr
+    )
+
+
 def _bias_from_accels(mt, a_com, omega, omega_dot, Iw, Jp, Jr):
     f = mt.body_mass[:, None] * (a_com - mt.gravity)
     Iom = torch.einsum("nbij,nbj->nbi", Iw, omega)
     t = torch.einsum("nbij,nbj->nbi", Iw, omega_dot) + torch.linalg.cross(
         omega, Iom
     )
-    return torch.einsum("nbk,nibk->ni", f, Jp) + torch.einsum(
-        "nbk,nibk->ni", t, Jr
-    )
+    return _body_wrench_tau(f, t, Jp, Jr)
 
 
 def bias_forces(
@@ -284,15 +304,38 @@ def _contact_forces_shared(mt, params: ContactParams, centers, v_con, Jc):
     return torch.einsum("nck,nick->ni", forces, Jc), d_con
 
 
-def _passive_forces(mt, q):
-    """Joint springs and the soft joint-limit penalty (damping implicit)."""
+def _fluid_forces(mt, v_com, omega, Rs):
+    """MuJoCo's legacy inertia-box fluid drag (``engine_passive.c``).
+
+    Each body is its equivalent inertia box; quadratic density drag and
+    linear viscous drag act on the body's 6D velocity at its CoM in the
+    inertial frame.  Returns the world-frame force and torque on every
+    body, ``([N, nb, 3], [N, nb, 3])``.
+    """
+    Ri = Rs @ mt.inertia_rot  # the inertial frames in the world
+    lin = torch.einsum("nbji,nbj->nbi", Ri, v_com)
+    ang = torch.einsum("nbji,nbj->nbi", Ri, omega)
+    f = -mt.fluid_lin[:, None] * lin - mt.fluid_lin2 * lin.abs() * lin
+    t = -mt.fluid_ang[:, None] * ang - mt.fluid_ang2 * ang.abs() * ang
+    return _mv(Ri, f), _mv(Ri, t)
+
+
+def _passive_forces(mt, q, qd):
+    """Joint springs, the soft joint-limit penalty (damping implicit) and
+    the fixed tendons' springs and dampers (explicit, as in the JAX step)."""
     qs = q[:, mt.hs_qadr]
     below = torch.clamp_max(qs - mt.hs_lo, 0.0)
     above = torch.clamp_min(qs - mt.hs_hi, 0.0)
     spring = -mt.hs_stiffness * (qs - mt.hs_springref) - _KLIM * (below + above)
-    return q.new_zeros(q.shape[0], mt.dof_damping.shape[0]).index_add_(
+    tau = q.new_zeros(q.shape[0], mt.dof_damping.shape[0]).index_add_(
         1, mt.hs_dadr, spring
     )
+    if len(mt.ten_stiffness):
+        length = q @ mt.ten_qcoef.T
+        f = -mt.ten_stiffness * (length - mt.ten_springlen)
+        f = f - mt.ten_damping * (qd @ mt.ten_dcoef.T)
+        tau = tau + f @ mt.ten_dcoef
+    return tau
 
 
 def _limit_violation(mt, q):
@@ -315,7 +358,7 @@ def _smooth(model: PhysModel, q, qd, ctrl, contact: ContactParams):
     k = _kin(model, q)
     Iw = _world_inertia(mt, k.Rs)
     Jp, Jr, Jc = _jac_from_kin(mt, k)
-    _, omega, a_com, omega_dot = _bias_accels(mt, k, qd)
+    v_com, omega, a_com, omega_dot = _bias_accels(mt, k, qd)
     M = _mass_from_jac(mt, Jp, Jr, Iw)
     c = _bias_from_accels(mt, a_com, omega, omega_dot, Iw, Jp, Jr)
     tv = qd[..., None] * k.t
@@ -326,11 +369,14 @@ def _smooth(model: PhysModel, q, qd, ctrl, contact: ContactParams):
     tau_con, d_con = _contact_forces_shared(mt, contact, k.centers, v_con, Jc)
     tau = (
         _actuator_forces(mt, ctrl)
-        + _passive_forces(mt, q)
+        + _passive_forces(mt, q, qd)
         + tau_con
         - c
         - mt.dof_damping * qd
     )
+    if model.density > 0 or model.viscosity > 0:
+        f, t = _fluid_forces(mt, v_com, omega, k.Rs)
+        tau = tau + _body_wrench_tau(f, t, Jp, Jr)
     return M, tau, d_con, k
 
 

@@ -6,10 +6,10 @@ result carries the env axis first.  The tree loop runs over the model's
 bodies in Python, as the JAX one unrolls at trace time; each joint is a
 handful of batched tensor ops.
 
-Hinge and slide joints are ported (what the Gym locomotion models without
-a floating base run).  Free and ball joints raise ``NotImplementedError``.
-The model's constants live on the device once per (model, device, dtype):
-:func:`model_tensors`.
+Every joint type of the JAX package runs: hinge, slide, ball and free (3
+world-frame translations and a quaternion whose angular velocity lives in
+the body frame, MuJoCo's convention).  The model's constants live on the
+device once per (model, device, dtype): :func:`model_tensors`.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ import types
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .model import HINGE, SLIDE, PhysModel
+from .model import BALL, FREE, SLIDE, PhysModel
 from .structure import dof_structure
 
 __all__ = [
@@ -34,25 +35,79 @@ __all__ = [
 ]
 
 
-def quat2mat(q: np.ndarray) -> np.ndarray:
+def quat2mat(q):
     """Rotation matrices ``[..., 3, 3]`` of quaternions ``[..., 4]`` (w
-    first), in numpy: the port rotates by constant quaternions only."""
+    first), of a numpy array or a tensor."""
+    stack = torch.stack if isinstance(q, torch.Tensor) else np.stack
     w, x, y, z = (q[..., i] for i in range(4))
     rows = [
         1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
         2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
         2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
     ]
-    return np.stack(rows, -1).reshape(*q.shape[:-1], 3, 3)
+    return stack(rows, -1).reshape(*q.shape[:-1], 3, 3)
 
 
-def _check_joints(model: PhysModel) -> None:
-    kinds = {int(j) for j in model.jnt_type}
-    if not kinds <= {HINGE, SLIDE}:
-        raise NotImplementedError(
-            "envpool_tpu_torch's physics runs hinge and slide joints only; "
-            f"this model has joint types {sorted(kinds)} (0 free, 1 ball)"
-        )
+def _quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton products ``a ⊗ b`` of quaternions ``[N, 4]`` (w first)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        -1,
+    )
+
+
+def _unit_rotation(quat: torch.Tensor) -> torch.Tensor:
+    """Rotations of quaternions ``[N, 4]``, normalised first as
+    ``mj_forward`` normalises qpos quaternions in place."""
+    return quat2mat(quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True))
+
+
+def _fluid_coefficients(model: PhysModel) -> dict[str, np.ndarray]:
+    """Per-body drag coefficients of MuJoCo's inertia-box fluid model
+    (``dynamics._fluid_forces``), in float64."""
+    inertia = np.asarray(model.body_inertia, np.float64)
+    mass = np.asarray(model.body_mass, np.float64)
+    s = inertia.sum(1, keepdims=True) - 2 * inertia
+    box = np.sqrt(np.maximum(1e-10, s / np.maximum(mass[:, None], 1e-12) * 6.0))
+    diam = box.mean(1)
+    box1, box2 = np.roll(box, -1, 1), np.roll(box, -2, 1)
+    return {
+        "fluid_lin": 3 * np.pi * diam * model.viscosity,
+        "fluid_ang": np.pi * diam**3 * model.viscosity,
+        "fluid_lin2": 0.5 * model.density * box1 * box2,
+        "fluid_ang2": model.density * box * (box1**4 + box2**4) / 64.0,
+    }
+
+
+def _tendon_tables(model: PhysModel) -> dict[str, np.ndarray]:
+    """The fixed tendons that have a spring or a damper, as coefficient
+    rows over qpos ``[T, nq]`` and qvel ``[T, nv]``."""
+    k, d = model.ten_fixed_stiffness, model.ten_fixed_damping
+    rows = [t for t in range(len(model.ten_fixed)) if k[t] != 0 or d[t] != 0]
+    qcoef = np.zeros((len(rows), model.nq))
+    dcoef = np.zeros((len(rows), model.nv))
+    for i, t in enumerate(rows):
+        for qadr, dadr, coef in model.ten_fixed[t]:
+            qcoef[i, qadr] += coef
+            dcoef[i, dadr] += coef
+
+    def pick(a):
+        return np.asarray([a[t] for t in rows], np.float64)
+
+    return {
+        "ten_qcoef": qcoef,
+        "ten_dcoef": dcoef,
+        "ten_stiffness": pick(k),
+        "ten_damping": pick(d),
+        "ten_springlen": pick(model.ten_fixed_springlen),
+    }
 
 
 @functools.lru_cache(maxsize=64)
@@ -61,9 +116,9 @@ def model_tensors(
 ) -> types.SimpleNamespace:
     """The model's constants and structure tables as tensors on ``device``.
 
-    Rotations of constant quaternions are computed once in float64.
+    Rotations of constant quaternions and the drag coefficients are
+    computed once in float64.
     """
-    _check_joints(model)
     s = dof_structure(model)
 
     def t(a, dt=dtype):
@@ -77,6 +132,7 @@ def model_tensors(
             moment[a, dadr] += coef
     body_mask = s.body_mask.astype(np.float64)
     con_mask = s.con_mask.astype(np.float64)
+    tables = {**_fluid_coefficients(model), **_tendon_tables(model)}
     return types.SimpleNamespace(
         eye=torch.eye(3, dtype=dtype, device=device),
         body_rot=t(quat2mat(np.asarray(model.body_quat, np.float64))),
@@ -110,6 +166,9 @@ def model_tensors(
         act_lo=t(s.act_lo),
         act_hi=t(s.act_hi),
         act_moment=t(moment),
+        nonfree_qadr=t(s.nonfree_qadr, long),
+        nonfree_dadr=t(s.nonfree_dadr, long),
+        **{k: t(v) for k, v in tables.items()},
     )
 
 
@@ -139,8 +198,10 @@ def _tree(model: PhysModel, q: torch.Tensor, screws: bool):
     """The tree pass behind :func:`fk` and :func:`fk_dof`.
 
     Joints of a body apply in model order within the body frame, as in
-    MuJoCo's ``mj_kinematics``; hinge and slide transforms are relative to
-    ``qpos0`` (the MJCF ``ref``).
+    MuJoCo's ``mj_kinematics``: a hinge turns the frame about the axis
+    through its anchor and a slide moves it along its axis (both relative
+    to ``qpos0``, the MJCF ``ref``), a ball turns it about its anchor in the
+    child frame, and a free joint sets it from qpos.
     """
     mt = model_tensors(model, q.device, q.dtype)
     n = q.shape[0]
@@ -162,18 +223,34 @@ def _tree(model: PhysModel, q: torch.Tensor, screws: bool):
             R = Rs[parent] @ mt.body_rot[b]
             p = ps[parent] + Rs[parent] @ mt.body_pos[b]
         for j in joints:
+            kind = int(model.jnt_type[j])
             adr = int(model.jnt_qposadr[j])
             d = int(model.jnt_dofadr[j])
-            axis_w = R @ mt.jnt_axis[j]
-            angle = q[:, adr] - float(q0[adr])
-            if int(model.jnt_type[j]) == SLIDE:
+            if kind == FREE:
+                p = q[:, adr : adr + 3]
+                R = _unit_rotation(q[:, adr + 3 : adr + 7])
+                for i in range(3):
+                    t[d + i] = mt.eye[i].expand(n, 3)
+                    w[d + 3 + i] = R[..., i]
+                    c[d + 3 + i] = p
+            elif kind == BALL:
+                anchor_w = p + R @ mt.jnt_pos[j]
+                R = R @ _unit_rotation(q[:, adr : adr + 4])
+                p = anchor_w - R @ mt.jnt_pos[j]
+                # The axes are the child frame's, anchored at the joint.
+                for i in range(3):
+                    w[d + i] = R[..., i]
+                    c[d + i] = anchor_w
+            elif kind == SLIDE:
+                axis_w = R @ mt.jnt_axis[j]
                 t[d] = axis_w
-                p = p + axis_w * angle[:, None]
+                p = p + axis_w * (q[:, adr] - float(q0[adr]))[:, None]
             else:  # HINGE
+                axis_w = R @ mt.jnt_axis[j]
                 anchor_w = p + R @ mt.jnt_pos[j]
                 w[d] = axis_w
                 c[d] = anchor_w
-                rot = _axis_angle(axis_w, angle, mt.eye)
+                rot = _axis_angle(axis_w, q[:, adr] - float(q0[adr]), mt.eye)
                 R = rot @ R
                 p = anchor_w + _mv(rot, p - anchor_w)
         Rs.append(R)
@@ -200,10 +277,21 @@ def fk_dof(model: PhysModel, q: torch.Tensor):
 
 
 def tangent(model: PhysModel, q: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
-    """Coordinate tangent q̇ of a generalized velocity (identity here)."""
-    _check_joints(model)
-    del q
-    return qd
+    """Coordinate tangent q̇ ``[N, nq]`` of a generalized velocity: qd itself
+    for hinge, slide and free translation, ``½ q ⊗ [0, ω_body]`` for each
+    quaternion."""
+    if model.nq == model.nv:
+        return qd
+    s = dof_structure(model)
+    mt = model_tensors(model, q.device, q.dtype)
+    qdot = q.new_zeros(q.shape)
+    qdot[:, mt.nonfree_qadr] = qd[:, mt.nonfree_dadr]
+    for qadr, dadr in s.free_jnts:
+        qdot[:, qadr : qadr + 3] = qd[:, dadr : dadr + 3]
+    for qadr, dadr in s.quat_jnts:
+        omega = F.pad(qd[:, dadr : dadr + 3], (1, 0))
+        qdot[:, qadr : qadr + 4] = 0.5 * _quat_mul(q[:, qadr : qadr + 4], omega)
+    return qdot
 
 
 def body_vel(model: PhysModel, q: torch.Tensor, qd: torch.Tensor):
@@ -227,6 +315,24 @@ def body_vel(model: PhysModel, q: torch.Tensor, qd: torch.Tensor):
 def integrate_qpos(
     model: PhysModel, q: torch.Tensor, qd: torch.Tensor, h: float
 ) -> torch.Tensor:
-    """qpos ← qpos + h·qd (hinge and slide joints)."""
-    _check_joints(model)
-    return q + h * qd
+    """qpos ← qpos ⊕ h·qd: each quaternion turns by the exponential map of
+    ``h·ω`` and is renormalised."""
+    if model.nq == model.nv:
+        return q + h * qd
+    s = dof_structure(model)
+    mt = model_tensors(model, q.device, q.dtype)
+    out = q.clone()
+    out[:, mt.nonfree_qadr] = q[:, mt.nonfree_qadr] + h * qd[:, mt.nonfree_dadr]
+    for qadr, dadr in s.free_jnts:
+        out[:, qadr : qadr + 3] = q[:, qadr : qadr + 3] + h * qd[:, dadr : dadr + 3]
+    for qadr, dadr in s.quat_jnts:
+        omega = qd[:, dadr : dadr + 3]
+        speed = torch.linalg.vector_norm(omega, dim=-1, keepdim=True)
+        axis = omega / (speed + 1e-12)
+        half = 0.5 * h * speed
+        turn = torch.cat([torch.cos(half), torch.sin(half) * axis], -1)
+        quat = _quat_mul(q[:, qadr : qadr + 4], turn)
+        out[:, qadr : qadr + 4] = quat / torch.linalg.vector_norm(
+            quat, dim=-1, keepdim=True
+        )
+    return out

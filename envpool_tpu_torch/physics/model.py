@@ -7,9 +7,8 @@ the port runs without ``mujoco`` or ``gymnasium``.  ``from_mjcf`` and
 ``mujoco`` bindings, which they import when called; the simulation itself
 never calls MuJoCo.
 
-Supported joint types here: free (3 translation + quaternion), hinge,
-slide.  The port's dynamics run hinge and slide joints
-(``physics/kinematics.py``).  Contacts are geom-vs-ground-plane (sphere and
+Supported joint types: free (3 translation + quaternion), ball, hinge,
+slide.  Contacts are geom-vs-ground-plane (sphere and
 capsule geoms contribute endpoint spheres).
 """
 
@@ -23,7 +22,20 @@ import numpy as np
 
 # Models whose constants are committed under ``assets/`` (written by
 # ``envpool_tpu_torch/tools/export_models.py``): xml name -> data file.
-ASSETS = {"half_cheetah.xml": "half_cheetah.npz"}
+ASSETS = {
+    "ant.xml": "ant.npz",
+    "half_cheetah.xml": "half_cheetah.npz",
+    "hopper.xml": "hopper.npz",
+    "humanoid.xml": "humanoid.npz",
+    "humanoidstandup.xml": "humanoidstandup.npz",
+    "inverted_double_pendulum.xml": "inverted_double_pendulum.npz",
+    "inverted_pendulum.xml": "inverted_pendulum.npz",
+    "pusher.xml": "pusher.npz",
+    "pusher_v5.xml": "pusher_v5.npz",
+    "reacher.xml": "reacher.npz",
+    "swimmer.xml": "swimmer.npz",
+    "walker2d.xml": "walker2d.npz",
+}
 ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 # MuJoCo joint type enum values (mjtJoint).

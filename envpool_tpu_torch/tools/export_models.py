@@ -1,8 +1,8 @@
 """Write the committed model data of the port's default MJCF models.
 
 Each model in ``physics.model.ASSETS`` is extracted from gymnasium's MuJoCo
-assets (``gymnasium/envs/mujoco/assets/``, MIT-licensed; today only
-``half_cheetah.xml``) through the port's own ``physics.model.from_mjcf``
+assets (``gymnasium/envs/mujoco/assets/``, MIT-licensed: every XML the
+Gym-MuJoCo ids use) through the port's own ``physics.model.from_mjcf``
 and written to ``envpool_tpu_torch/physics/assets/`` as an ``.npz`` that
 loads without pickle, ``mujoco`` or ``gymnasium``.  It needs ``mujoco``
 and ``gymnasium``::

@@ -57,8 +57,8 @@ def test_registry_surface():
     ported = [
         t for t in envpool_tpu.list_all_envs()
         if t == TASK
-        or t.startswith(("Machine2600", "HalfCheetah-"))
-        or registry.specs[t][0].endswith(".classic_control")
+        or t.startswith("Machine2600")
+        or registry.specs[t][0].endswith((".classic_control", ".mujoco_gym"))
     ]
     assert envpool_tpu_torch.list_all_envs() == ported
     with pytest.raises(ValueError):

@@ -114,7 +114,22 @@ def test_spec_matches_jax(version):
     assert tspec.state_array_spec["obs"].shape == (17,)
 
 
-def test_pools_run_and_unported_options_raise():
+_UNPORTED_XML = {
+    "ball-joint limits": """
+<mujoco><worldbody><body pos="0 0 1">
+  <joint type="ball" range="0 30"/><geom type="sphere" size="0.1" mass="1"/>
+</body></worldbody></mujoco>""",
+    "spatial tendons": """
+<mujoco><worldbody>
+  <site name="anchor" pos="0 0 2"/>
+  <body pos="0 0 1"><joint type="slide" axis="0 0 1"/>
+    <geom type="sphere" size="0.1" mass="1"/><site name="bob"/></body>
+</worldbody><tendon><spatial limited="true" range="0 1.5">
+  <site site="anchor"/><site site="bob"/></spatial></tendon></mujoco>""",
+}
+
+
+def test_pools_run_and_unported_options_raise(tmp_path):
     n = 3
     pool = envpool_tpu_torch.make(TASK, env_type="gymnasium", num_envs=n, device="cpu")
     obs, info = pool.reset()
@@ -129,9 +144,47 @@ def test_pools_run_and_unported_options_raise():
     assert tuple(obs.shape) == (n, 17)
     with pytest.raises(NotImplementedError, match="contact_solver"):
         envpool_tpu_torch.make_spec(TASK, device="cpu", contact_solver="mujoco")
+    pytest.importorskip("mujoco")
+    for what, xml in _UNPORTED_XML.items():
+        path = tmp_path / "model.xml"
+        path.write_text(xml)
+        with pytest.raises(NotImplementedError, match=what):
+            envpool_tpu_torch.make_spec(TASK, device="cpu", xml_file=str(path))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             envpool_tpu_torch.make(TASK, env_type="gymnasium")
+
+
+@pytest.mark.parametrize(
+    "task, module, name",
+    [("Pusher-v4", "tasks", "body_positions"), ("Humanoid-v4", "humanoid", "_kin")],
+)
+def test_observations_run_in_full_fp32(monkeypatch, task, module, name):
+    """The tree passes of the observations and rewards, like the physics
+    step, run their matmuls without TF32 whatever the caller set."""
+    import importlib
+
+    mod = importlib.import_module(f"envpool_tpu_torch.envs.mujoco_gym.{module}")
+    matmul = torch.backends.cuda.matmul
+    seen = []
+    inner = getattr(mod, name)
+
+    def spy(*args):
+        seen.append(matmul.fp32_precision)
+        return inner(*args)
+
+    monkeypatch.setattr(mod, name, spy)
+    pool = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=2, device="cpu")
+    seen.clear()
+    before = matmul.fp32_precision
+    matmul.fp32_precision = "tf32"
+    try:
+        pool.reset()
+        pool.step(np.zeros((2, pool.spec.env.model.nu), np.float32))
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.fp32_precision = before
+    assert seen and set(seen) == {"ieee"}
 
 
 @pytest.fixture
@@ -142,28 +195,48 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-def test_card_step_matches_cpu(cuda_device):
-    """One HalfCheetah step of 4096 envs on the card against the CPU port,
-    within ``STEP_TOL``, except envs whose state lies within 1e-5 of a
-    switch of the penalty forces at the start of one of the 5 substeps."""
-    pool = envpool_tpu_torch.make(TASK, env_type="gymnasium", num_envs=4096, device="cpu")
+@pytest.mark.parametrize("task", [TASK, "Ant-v4", "Humanoid-v4"])
+def test_card_step_matches_cpu(cuda_device, task):
+    """One env step of 4096 envs on the card against the CPU port, within
+    ``STEP_TOL``, except envs whose substeps fall on different sides of a
+    switch of the penalty forces on the card and on the CPU (under 1% of
+    them).  An env past ``STEP_TOL`` passes only where a float64 step (on
+    the card) shows a float32 step off by more than ``STEP_TOL / 2`` (under
+    1% of them too), and over all envs the card's float32 steps are as
+    close to float64 as the CPU's: the 99th percentile within 2x (plus
+    1e-6), the count past ``STEP_TOL / 2`` within 1.5x (plus 5)."""
+    n = 4096
+    pool = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=n, device="cpu")
     pool.reset()
+    env = pool.spec.env
     r = np.random.default_rng(4)
+    nu = env.model.nu
     for _ in range(20):
-        pool.step(r.uniform(-1, 1, (4096, 6)).astype(np.float32))
+        pool.step(r.uniform(-1, 1, (n, nu)).astype(np.float32))
     st = pool.pool_state.env_state
     q, qd = st["qpos"], st["qvel"]
-    u = torch.as_tensor(r.uniform(-1, 1, (4096, 6)).astype(np.float32))
-    model = pool.spec.env.model
-    want = tdyn.step(model, q, qd, u, nsteps=5)
-    got = tdyn.step(model, *(x.to(cuda_device) for x in (q, qd, u)), nsteps=5)
-    err = torch.stack(
-        [((g.cpu() - w).abs() / (1 + w.abs())).amax(1) for g, w in zip(got, want)]
-    ).amax(0)
-    dist = tdyn.switch_distance(model, q)
-    for _ in range(4):
-        q, qd = tdyn.step(model, q, qd, u)
-        dist = torch.minimum(dist, tdyn.switch_distance(model, q))
-    near = dist < 1e-5
-    assert bool((err[~near] <= STEP_TOL).all()), float(err[~near].max())
-    assert int(near.sum()) < 41
+    u = torch.as_tensor(r.uniform(-1, 1, (n, nu)).astype(np.float32))
+    model, args = env.model, (env.substeps, env.contact, env.frame_skip)
+
+    def rel(a, b):
+        a, b = (torch.cat([x.double().cpu() for x in y], 1) for y in (a, b))
+        return ((a - b).abs() / (1 + b.abs())).amax(1)
+
+    want = tdyn.step(model, q, qd, u, *args)
+    got = tdyn.step(model, *(x.to(cuda_device) for x in (q, qd, u)), *args)
+    ref = tdyn.step(model, *(x.to(cuda_device, torch.float64) for x in (q, qd, u)), *args)
+    err, card64, cpu64 = rel(got, want), rel(got, ref), rel(want, ref)
+    crossed = torch.zeros(n, dtype=torch.bool)
+    sq, sqd, cq, cqd = q, qd, q.to(cuda_device), qd.to(cuda_device)
+    for _ in range(env.frame_skip * env.substeps - 1):
+        sq, sqd = tdyn.step(model, sq, sqd, u, 1, env.contact)
+        cq, cqd = tdyn.step(model, cq, cqd, u.to(cuda_device), 1, env.contact)
+        crossed |= (tdyn.switch_sides(model, sq) != tdyn.switch_sides(model, cq).cpu()).any(1)
+    past = (err > STEP_TOL) & ~crossed
+    assert int(crossed.sum()) < 0.01 * n
+    assert int(past.sum()) < 0.01 * n
+    off = torch.maximum(card64, cpu64) > STEP_TOL / 2
+    assert not bool((past & ~off).any()), float(err[past & ~off].max())
+    card64, cpu64 = card64[~crossed], cpu64[~crossed]
+    assert float(card64.quantile(0.99)) <= 2 * float(cpu64.quantile(0.99)) + 1e-6
+    assert int((card64 > STEP_TOL / 2).sum()) <= 1.5 * int((cpu64 > STEP_TOL / 2).sum()) + 5

@@ -1,12 +1,19 @@
-"""The port's batched physics against the JAX physics, on HalfCheetah.
+"""The port's batched physics against the JAX physics.
 
 The JAX functions take one env and are ``vmap``ped here; the port's take
-``[N, ...]`` tensors.  Both run the same float32 states: those the JAX
-physics reaches in 30 env steps of random controls from reset-like states
-made with numpy from a seed, with the torso then lowered by up to 4 cm, so
-that half or more of the envs have a foot, shin or head in the ground
-(up to ~8 cm deep) and |qvel| reaches ~16.  Controls go past the
-actuators' range (the physics clips them).
+``[N, ...]`` tensors.  Both run the same float32 states.  On HalfCheetah
+they are those the JAX physics reaches in 30 env steps of random controls
+from reset-like states made with numpy from a seed, with the torso then
+lowered by up to 4 cm, so that half or more of the envs have a foot, shin
+or head in the ground (up to ~8 cm deep) and |qvel| reaches ~16.
+Controls go past the actuators' range (the physics clips them).
+
+The free and ball joints run on Ant and Humanoid (a free base, states the
+JAX physics reaches in 30 random env steps from reset-like states whose
+quaternions are not normalised) and on a two-body chain of ball joints
+(random poses and speeds, no ground); fluid drag runs on Swimmer and the
+fixed tendons' springs and dampers on Humanoid with its tendons given a
+stiffness and a damping.
 
 Tolerances:
 
@@ -33,10 +40,12 @@ from envpool_tpu.envs.mujoco_gym.base import _load_model
 from envpool_tpu.physics import dynamics as jdyn
 from envpool_tpu.physics import kinematics as jkin
 from envpool_tpu.physics import linalg as jlinalg
+from envpool_tpu.physics import model as jmodel
 from envpool_tpu_torch.physics import dynamics as tdyn
 from envpool_tpu_torch.physics import kinematics as tkin
 from envpool_tpu_torch.physics import linalg as tlinalg
 from envpool_tpu_torch.physics import model as tmodel
+from envpool_tpu_torch.physics.structure import dof_structure
 
 KIN_TOL = 2e-5
 STEP_TOL = 1e-4
@@ -49,7 +58,8 @@ def close(got, want, tol, what=""):
     want = np.asarray(want)
     assert got.shape == want.shape, what
     err = np.abs(got - want) / (1 + np.abs(want))
-    assert np.isfinite(got).all() and err.max() <= tol, f"{what}: {err.max():.3g}"
+    worst = err.max(initial=0.0)
+    assert np.isfinite(got).all() and worst <= tol, f"{what}: {worst:.3g}"
 
 
 def _t(*arrays):
@@ -93,17 +103,17 @@ def states(models, jax_steps):
 
 
 @pytest.mark.parametrize("reference", ["port", "jax"])
-def test_model_data_matches_from_mjcf(models, reference):
-    """The committed HalfCheetah data equals what ``from_mjcf`` extracts
-    from gymnasium's XML, field by field and exactly."""
+@pytest.mark.parametrize("xml", sorted(tmodel.ASSETS))
+def test_model_data_matches_from_mjcf(xml, reference):
+    """Each committed model equals what ``from_mjcf`` extracts from
+    gymnasium's XML, field by field and exactly."""
     pytest.importorskip("mujoco")
     gymnasium = pytest.importorskip("gymnasium")
-    xml = os.path.join(
-        os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets",
-        "half_cheetah.xml",
+    path = os.path.join(
+        os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", xml
     )
-    want = tmodel.from_mjcf(xml) if reference == "port" else models[0]
-    got = models[1]
+    want = tmodel.from_mjcf(path) if reference == "port" else _load_model(xml)
+    got = tmodel.load_model(xml)
     for f in dataclasses.fields(tmodel.PhysModel):
         a, b = getattr(got, f.name), getattr(want, f.name)
         if a is None or b is None:
@@ -116,11 +126,17 @@ def test_model_data_matches_from_mjcf(models, reference):
 
 
 def test_model_loads_without_mujoco(monkeypatch):
-    monkeypatch.setitem(__import__("sys").modules, "mujoco", None)
+    for name in ("mujoco", "gymnasium"):
+        monkeypatch.setitem(__import__("sys").modules, name, None)
     tmodel.load_model.cache_clear()
     try:
         m = tmodel.load_model("half_cheetah.xml")
         assert (m.nq, m.nv, m.nu, m.nbody, len(m.con_body)) == (9, 9, 6, 8, 16)
+        m = tmodel.load_model("humanoid.xml")
+        assert (m.nq, m.nv, m.nu, m.nbody, len(m.con_body)) == (24, 23, 17, 14, 29)
+        assert len(m.ten_fixed) == 2
+        for xml in tmodel.ASSETS:
+            assert tmodel.load_model(xml).nq > 0
         with pytest.raises(ImportError, match="needs the `mujoco` package"):
             tmodel.load_model("/nonexistent/hopper.xml")
     finally:
@@ -282,24 +298,240 @@ def test_step_runs_matmuls_in_full_fp32(models, states, monkeypatch):
     assert seen == ["ieee", "ieee"]
 
 
-def test_unported_features_raise(models, states):
+_BALL_XML = """
+<mujoco>
+  <option timestep="0.005"/>
+  <worldbody>
+    <body name="a" pos="0 0 0.3" euler="10 0 30">
+      <joint name="ball_a" type="ball" pos="0 0 0.1" damping="0.1" armature="0.01"%s/>
+      <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.05" mass="1"/>
+      <body name="b" pos="0.3 0 0" euler="0 20 10">
+        <joint name="ball_b" type="ball" pos="0.02 0.01 0" armature="0.01"/>
+        <geom type="capsule" fromto="0 0 0 0.3 0 0.1" size="0.04" mass="0.5"/>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+
+def _ball_xml(directory, limited=False):
+    path = directory / ("ball_limited.xml" if limited else "ball.xml")
+    path.write_text(_BALL_XML % (' range="0 30"' if limited else ""))
+    return str(path)
+
+
+def test_unported_features_raise(models, states, tmp_path):
     _, tm = models
     q, qd, u = _t(*states)
-    free = dataclasses.replace(tm, jnt_type=np.r_[0, tm.jnt_type[1:]])
-    with pytest.raises(NotImplementedError, match="hinge and slide"):
-        tkin.fk(free, q)
     with pytest.raises(NotImplementedError, match="contact_solver"):
         tdyn.step(tm, q, qd, u, contact=tdyn.ContactParams(solver="mujoco"))
-    with pytest.raises(NotImplementedError, match="fluid"):
-        tdyn.step(dataclasses.replace(tm, density=1.2), q, qd, u)
+    with pytest.raises(NotImplementedError, match="body-body contact pairs"):
+        tdyn.step(tm, q, qd, u, contact=tdyn.ContactParams(pairs=True))
+    string = dataclasses.replace(tm, ten_spatial_sites=np.zeros((1, 2), np.int64))
+    with pytest.raises(NotImplementedError, match="spatial tendons"):
+        tdyn.step(string, q, qd, u)
+    pytest.importorskip("mujoco")
+    with pytest.raises(NotImplementedError, match="ball-joint limits"):
+        tmodel.from_mjcf(_ball_xml(tmp_path, limited=True))
 
 
-def test_switch_distance(models, states):
+# -- free and ball joints, fluid drag, fixed tendons ---------------------------
+
+
+class _Case:
+    """A model in both packages, its JAX env step (jitted once) and states."""
+
+    def __init__(self, jm, tm, nsteps, q, qd, ctrl_hi, warmup):
+        self.jm, self.tm, self.nsteps = jm, tm, nsteps
+        cp = jdyn.ContactParams()
+        self.jax_step = _jvmap(lambda q, qd, u: jdyn._step_impl(jm, q, qd, u, 1, cp, nsteps))
+        r = np.random.default_rng(5)
+        q, qd = q.astype(np.float32), qd.astype(np.float32)
+        for _ in range(warmup):
+            q, qd = self.jax_step(q, qd, self.ctrl(r, ctrl_hi))
+        self.q, self.qd = np.array(q), np.array(qd)
+        self.u = self.ctrl(r, 1.5 * ctrl_hi)
+        self.ctrl_hi = ctrl_hi
+
+    def ctrl(self, r, hi):
+        return r.uniform(-hi, hi, (N, self.jm.nu)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def free_cases(tmp_path_factory):
+    """``name -> _Case``, built on first use."""
+    cases = {}
+
+    def get(name):
+        if name in cases:
+            return cases[name]
+        r = np.random.default_rng(len(name))
+        if name == "ball":
+            pytest.importorskip("mujoco")
+            xml = _ball_xml(tmp_path_factory.mktemp("ball"))
+            jm, tm = jmodel.from_mjcf(xml), tmodel.from_mjcf(xml)
+            q = jm.qpos0 + r.uniform(-0.3, 0.3, (N, jm.nq))
+            cases[name] = _Case(jm, tm, 5, q, r.normal(0, 2, (N, jm.nv)), 0.0, 0)
+            return cases[name]
+        xml, integrator, nsteps, noise, hi, warmup = {
+            "ant": ("ant.xml", 0, 5, 0.1, 1.0, 30),
+            "humanoid": ("humanoid.xml", 0, 5, 0.01, 0.4, 30),
+            "swimmer": ("swimmer.xml", 1, 4, 0.1, 1.0, 10),
+        }[name]
+        jm = dataclasses.replace(_load_model(xml), integrator=integrator)
+        tm = dataclasses.replace(tmodel.load_model(xml), integrator=integrator)
+        # Reset-like states; the quaternion's noise leaves it unnormalised.
+        q = jm.qpos0 + r.uniform(-noise, noise, (N, jm.nq))
+        qd = r.uniform(-noise, noise, (N, jm.nv))
+        cases[name] = _Case(jm, tm, nsteps, q, qd, hi, warmup)
+        return cases[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", ["ant", "humanoid", "ball"])
+def test_free_and_ball_kinematics_match_jax(free_cases, name):
+    c = free_cases(name)
+    jm, tm = c.jm, c.tm
+    q, qd = c.q.copy(), c.qd
+    for qadr, _ in dof_structure(jm).quat_jnts:  # quaternions, unnormalised
+        q[:, qadr : qadr + 4] *= 1.1
+    tq, tqd = _t(q, qd)
+    want = _jvmap(lambda q: jkin.fk_dof(jm, q))(q)
+    for name_, a, b in zip(("R", "p", "t", "w", "c"), tkin.fk_dof(tm, tq), want):
+        close(a, b, KIN_TOL, name_)
+    for a, b in zip(tkin.fk(tm, tq), _jvmap(lambda q: jkin.fk(jm, q))(q)):
+        close(a, b, KIN_TOL, "fk")
+    (_, _), (om, v) = tkin.body_vel(tm, tq, tqd)
+    (_, _), (jom, jv) = _jvmap(lambda q, qd: jkin.body_vel(jm, q, qd))(q, qd)
+    close(om, jom, KIN_TOL, "omega")
+    close(v, jv, KIN_TOL, "v")
+    close(tkin.tangent(tm, tq, tqd), _jvmap(lambda q, qd: jkin.tangent(jm, q, qd))(q, qd), KIN_TOL, "tangent")
+    got = tkin.integrate_qpos(tm, tq, tqd, 0.01)
+    close(got, _jvmap(lambda q, qd: jkin.integrate_qpos(jm, q, qd, 0.01))(q, qd), KIN_TOL, "integrate")
+    close(
+        tdyn.body_com_positions(tm, tq),
+        _jvmap(lambda q: jdyn.body_com_positions(jm, q))(q),
+        KIN_TOL,
+        "body_com_positions",
+    )
+    mt = tkin.model_tensors(tm, tq.device, tq.dtype)
+    for name_, a, b in zip(
+        ("v_com", "omega", "v_con"),
+        tdyn._vel_from_kin(mt, tdyn._kin(tm, tq), tqd),
+        _jvmap(lambda q, qd: jdyn._vel_observables(jm, q, qd))(q, qd),
+    ):
+        close(a, b, KIN_TOL, name_)
+
+
+def test_fluid_drag_matches_jax(free_cases):
+    c = free_cases("swimmer")
+    assert c.tm.density == 4000 and c.tm.viscosity == 0.1
+    tq, tqd = _t(c.q, c.qd)
+    mt = tkin.model_tensors(c.tm, tq.device, tq.dtype)
+    k = tdyn._kin(c.tm, tq)
+    v_com, omega, _ = tdyn._vel_from_kin(mt, k, tqd)
+    Jp, Jr, _ = tdyn._jac_from_kin(mt, k)
+    tau = tdyn._body_wrench_tau(*tdyn._fluid_forces(mt, v_com, omega, k.Rs), Jp, Jr)
+    want = _jvmap(lambda q, qd: jdyn._fluid_forces(c.jm, q, qd))(c.q, c.qd)
+    scale = 1 + float(np.abs(want).max())  # density drag: thousands of N
+    close(tau / scale, np.asarray(want) / scale, KIN_TOL, "fluid")
+    assert float(np.abs(want).min(0).max()) > 0
+
+
+def test_fixed_tendon_springs_match_jax(free_cases):
+    c = free_cases("humanoid")
+    assert len(c.tm.ten_fixed) == 2 and not c.tm.ten_fixed_stiffness.any()
+    springy = {
+        "ten_fixed_stiffness": np.array([40.0, 25.0]),
+        "ten_fixed_damping": np.array([3.0, 0.0]),
+        "ten_fixed_springlen": np.array([0.05, -0.1]),
+    }
+    jm = dataclasses.replace(c.jm, **springy)
+    tm = dataclasses.replace(c.tm, **springy)
+    tq, tqd = _t(c.q, c.qd)
+    mt = tkin.model_tensors(tm, tq.device, tq.dtype)
+    got = tdyn._passive_forces(mt, tq, tqd)
+    want = _jvmap(lambda q, qd: jdyn._passive_forces(jm, q, qd))(c.q, c.qd)
+    close(got, want, KIN_TOL, "passive")
+    plain = tdyn._passive_forces(tkin.model_tensors(c.tm, tq.device, tq.dtype), tq, tqd)
+    assert float((got - plain).abs().max()) > 1.0  # the tendons pull
+    # Explicit qacc with the contacts' forces reaches thousands: scale
+    # the tolerance to its size, as for the contact forces.
+    got = tdyn.forward(tm, tq, tqd, torch.as_tensor(c.u))
+    want = np.asarray(_jvmap(lambda q, qd, u: jdyn.forward(jm, q, qd, u))(c.q, c.qd, c.u))
+    scale = 1 + float(np.abs(want).max())
+    close(got / scale, want / scale, KIN_TOL, "qacc")
+
+
+@pytest.mark.parametrize("name", ["ant", "humanoid", "swimmer", "ball"])
+def test_free_model_step_matches_jax(free_cases, name):
+    """One env step: Euler (Ant, Humanoid and the ball chain, 5 steps of
+    the model's timestep) or RK4 (Swimmer, 4 steps)."""
+    c = free_cases(name)
+    want = c.jax_step(c.q, c.qd, c.u)
+    got = tdyn.step(c.tm, *_t(c.q, c.qd, c.u), 1, tdyn.ContactParams(), c.nsteps)
+    for what, a, b in zip(("qpos", "qvel"), got, want):
+        close(a, b, STEP_TOL, what)
+    if name in ("ant", "humanoid"):  # a free base, on its contacts or in the air
+        touch = (tdyn.contact_depths(c.tm, torch.as_tensor(c.q)) > 0).any(1)
+        assert 0.2 <= float(touch.float().mean()) < 1
+
+
+def test_ant_ten_steps_stay_within_trajectory_tolerance(free_cases):
+    """Ten Ant env steps of 96 envs from states 30 random steps into an
+    episode.  Such a trajectory runs through contacts that switch on and
+    off, and float32 alone moves it: JAX's own float32 trajectory leaves
+    ``TRAJ_TOL`` of a float64 one in about a tenth of the envs.  So three
+    quarters of the envs must stay within ``TRAJ_TOL`` of JAX, and the
+    port's drift from float64 must be no larger than JAX's: as many envs
+    past ``TRAJ_TOL`` (1.5x, plus 4) and the median drift within 2x."""
+    c = free_cases("ant")
+    n = 96
+    r = np.random.default_rng(13)
+    q = (c.jm.qpos0 + r.uniform(-0.1, 0.1, (n, c.jm.nq))).astype(np.float32)
+    qd = r.uniform(-0.1, 0.1, (n, c.jm.nv)).astype(np.float32)
+    jax_step = _jvmap(lambda q, qd, u: jdyn._step_impl(c.jm, q, qd, u, 1, jdyn.ContactParams(), 5))
+    for _ in range(30):
+        q, qd = jax_step(q, qd, r.uniform(-1, 1, (n, c.jm.nu)).astype(np.float32))
+    jq, jqd = np.array(q), np.array(qd)
+    tq, tqd = _t(jq, jqd)
+    fq, fqd = tq.double(), tqd.double()
+    for _ in range(10):
+        u = r.uniform(-1, 1, (n, c.jm.nu)).astype(np.float32)
+        jq, jqd = jax_step(jq, jqd, u)
+        tq, tqd = tdyn.step(c.tm, tq, tqd, torch.as_tensor(u), 1, tdyn.ContactParams(), 5)
+        fq, fqd = tdyn.step(c.tm, fq, fqd, torch.as_tensor(u).double(), 1, tdyn.ContactParams(), 5)
+
+    def drift(a, b):
+        a, b = (np.concatenate([np.asarray(x[0], np.float64), np.asarray(x[1], np.float64)], 1)
+                for x in (a, b))
+        return (np.abs(a - b) / (1 + np.abs(b))).max(1)
+
+    to_jax = drift((tq, tqd), (jq, jqd))
+    port64 = drift((tq, tqd), (fq, fqd))
+    jax64 = drift((jq, jqd), (fq, fqd))
+    assert np.isfinite(to_jax).all()
+    assert (to_jax <= TRAJ_TOL).mean() >= 0.75, np.sort(to_jax)[-12:]
+    assert (port64 > TRAJ_TOL).sum() <= 1.5 * (jax64 > TRAJ_TOL).sum() + 4
+    assert np.median(port64) <= 2 * np.median(jax64)
+
+
+def test_switch_sides(models, states):
     _, tm = models
     q = torch.as_tensor(states[0])
-    d = tdyn.switch_distance(tm, q)
-    depth = tdyn.contact_depths(tm, q).abs().amin(1)
-    assert d.shape == (N,) and bool((d <= depth).all()) and bool((d >= 0).all())
+    sides = tdyn.switch_sides(tm, q)
+    nh = len(dof_structure(tm).hs_qadr)  # hinge and slide joints
+    assert sides.shape == (N, len(tm.con_body) + 2 * nh) and sides.dtype == torch.bool
+    assert torch.equal(sides[:, : len(tm.con_body)], tdyn.contact_depths(tm, q) > 0)
+    lo, hi = (
+        torch.as_tensor(np.where(tm.jnt_limited, tm.jnt_range[:, i], sign * np.inf), dtype=q.dtype)
+        for i, sign in ((0, -1), (1, 1))
+    )
+    assert torch.equal(sides[:, len(tm.con_body):], torch.cat([q < lo, q > hi], 1))
     q2 = q.clone()
-    q2[:, 3] = float(tm.jnt_range[3, 0])  # bthigh exactly at its lower limit
-    assert bool((tdyn.switch_distance(tm, q2) == 0).all())
+    q2[:, 3] = float(tm.jnt_range[3, 0]) - 0.01  # bthigh below its lower limit
+    q2[:, 4] = float(tm.jnt_range[4, 0]) + 0.01  # bshin within its range
+    below = tdyn.switch_sides(tm, q2)[:, len(tm.con_body):][:, :nh]
+    assert bool(below[:, 3].all()) and not bool(below[:, 4].any())
