@@ -12,7 +12,7 @@ and HalfCheetah-v4, Ant-v4 and Humanoid-v4 (the rigid-body physics, the
 last two with a free base) at 8192 envs, it drives the gymnasium, dm and
 functional entry points, checks the card against the CPU port, profiles
 engine steps and times a rollout; every other Gym-MuJoCo id gets a short
-card-vs-CPU check at 256 envs.  It also times K2
+card-vs-CPU check at 256 envs (1024 with a free base).  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
 holds it to its chain bound: each frame's most emulated instructions on
 one machine times one dependent shared-memory load, measured on the card.
@@ -48,7 +48,21 @@ TIE_RULE = "equal everywhere except exact .5 ties, where |diff| <= 1"
 N_CARTPOLE = 16384
 N_CHEETAH = 8192
 N_ANT = N_HUMANOID = 8192
-N_SHORT = 256  # the short card-vs-CPU check of the other Gym-MuJoCo ids
+# The short card-vs-CPU check of the other Gym-MuJoCo ids: 256 envs, and
+# 1024 for those with a free base, whose float32 steps most often land past
+# the tolerance (so that each id's share is read from 3072 env steps).
+N_SHORT = 256
+N_SHORT_FREE = 1024
+FREE_BASE = ("Ant", "Humanoid", "HumanoidStandup")
+# The tasks whose float32 step itself lands past PHYSICS_TOL of a float64
+# step on some states, on the card and on the CPU alike (PERF.md, section
+# 6): there an env past the tolerance may pass where the card lies within
+# SPREAD_FACTOR times float32's own spread on the CPU (float32_spread) of
+# float64.  Every other task is held to the strict rule
+# (phase_float_card_vs_cpu).
+SPREAD = FREE_BASE + ("Hopper", "Walker2d")
+SPREAD_MOVES = 16
+SPREAD_FACTOR = 4.0
 # One step from the same state, |card - cpu| <= tol * (1 + |cpu|): float32
 # rounding for CartPole (tests/test_torch_classic.py), 1e-4 for the
 # physics (tests/test_torch_physics.py).
@@ -719,6 +733,29 @@ def _physics_f64(env, ps, act, device):
     return torch.cat(out, 1).cpu()
 
 
+def _rel(a, b):
+    """``[N]``: the largest ``|a - b| / (1 + |b|)`` of each row, in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs() / (1 + b.abs())).amax(-1)
+
+
+def float32_spread(fn, args, ref):
+    """``[M]``: the farthest that ``fn`` in float32 on the CPU lands from
+    its float64 result ``ref`` ``[M, m]``, over ``fn(*args)`` and
+    ``SPREAD_MOVES`` calls on ``args`` with every element moved up or down
+    by an ulp or two at random: how far float32 alone carries ``fn`` from
+    float64 on these inputs, whatever device runs it."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    out = _rel(fn(*args), ref)
+    for _ in range(SPREAD_MOVES):
+        moved = [x * (1 + (2 * torch.randint(0, 2, x.shape, generator=gen) - 1) * 2.0**-23)
+                 for x in args]
+        out = torch.maximum(out, _rel(fn(*moved), ref))
+    return out
+
+
 def _quantiles(x) -> str:
     return "/".join(f"{float(v):.3g}" for v in np.quantile(x.numpy(), [0.99, 0.999, 1.0]))
 
@@ -745,61 +782,32 @@ def _physics_crossed(env, ps, act, device):
     return crossed & ~ps.autoreset
 
 
-def _bounds_margin(x, *bounds):
-    """``[N]`` distance of ``x`` ``[N]`` or ``[N, k]`` to the nearest of
-    ``bounds`` (infinite bounds are never near)."""
-    import torch
-
-    x = x.reshape(x.shape[0], -1)
-    return torch.stack([(x - b).abs().amin(1) for b in bounds], 1).amin(1)
-
-
-def _termination_margin(env, state):
-    """``[N]`` distance of each new physics state to the bound on which its
-    task terminates (infinite where the task never terminates)."""
-    import torch
-
-    from envpool_tpu_torch.physics.dynamics import site_positions
-
-    q, qd = state["qpos"], state["qvel"]
-    kind = type(env).__name__
-    if kind in ("HopperEnv", "Walker2dEnv"):
-        return torch.minimum(
-            torch.minimum(_bounds_margin(q[:, 1], *env.HEALTHY_Z),
-                          _bounds_margin(q[:, 2], *env.HEALTHY_ANGLE)),
-            _bounds_margin(torch.cat([q[:, 2:], qd], 1), *env.HEALTHY_STATE))
-    if kind == "AntEnv":
-        return _bounds_margin(q[:, 2], 0.2, 1.0)
-    if kind == "HumanoidEnv":
-        return _bounds_margin(q[:, 2], 1.0, 2.0)
-    if kind == "InvertedPendulumEnv":
-        return _bounds_margin(q[:, 1].abs(), 0.2)
-    if kind == "InvertedDoublePendulumEnv":
-        return _bounds_margin(site_positions(env.model, q)[:, env._tip, 2], 1.0)
-    return torch.full((q.shape[0],), float("inf"))
-
-
 def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
-                            steps: int, tol: float) -> dict:
+                            steps: int, tol: float, spread: bool = False) -> dict:
     """After ``warmup`` random steps on the card, ``steps`` engine steps
     each taken on the card and on the CPU from the same pool state and
     action: float fields within ``tol * (1 + |cpu|)``, the rest equal.  A
     done flag may differ only where the new state lies within ``tol`` of
     its task's termination bound (and then the reward and discount with
-    it).
+    it): for CartPole, its thresholds; for the physics, the env's own
+    ``termination_margin``.
 
     For the physics, the new state itself is held to ``tol``: an env whose
     substeps fall on different sides of a penalty-force switch on the card
     and on the CPU is left out, and every stepped env is also stepped in
-    float64, so that an env past the tolerance passes only where that step
-    shows a float32 step off by more than ``tol / 2`` (each at most 1% of
-    the envs, :func:`check_shares`).  What the env derives from its new
-    state (obs, reward, done) the CPU computes from the card's new state,
-    since an observation such as a contact force (``kp`` times a depth)
-    scales the state's rounding by 1e4; an obs past the tolerance passes
-    only where the float64 obs of that state shows a float32 obs off by
-    more than ``tol / 2``.  The caller allows TF32, and the physics must
-    still run its matmuls without it.
+    float64.  An env past the tolerance passes only where float32 is at
+    fault and not the card: where the card's float32 step lies within
+    ``tol / 2`` of float64 and the CPU's does not; or, with ``spread``,
+    where the card's lies within ``tol`` of float64, or within
+    ``SPREAD_FACTOR`` times the farthest that the CPU's float32 steps from
+    that state and from its neighbours an ulp away land from it
+    (:func:`float32_spread`).  (Each at most 1% of the envs,
+    :func:`check_shares`.)  What the env derives from its new state (obs,
+    reward, done) the CPU computes from the card's new state, since an
+    observation such as a contact force (``kp`` times a depth) scales the
+    state's rounding by 1e4; an obs past the tolerance passes by the same
+    rule, against the float64 obs of that state.  The caller allows TF32,
+    and the physics must still run its matmuls without it.
 
     Returns the counts it printed and each stepped env's distance to
     float64 on the card and on the CPU, of its state and of its obs, for
@@ -835,8 +843,19 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         not_spd[0] += int((~torch.isfinite(x)).any(-1).sum())
         return x
 
-    def rel(a, b):
-        return ((a.double() - b.double()).abs() / (1 + b.double().abs())).amax(-1)
+    rel = _rel
+    # The card's largest distance to float64 over its limit, of the envs
+    # past the tolerance: state, obs.
+    ratios = [0.0, 0.0]
+
+    def f32_at_fault(which, card64, cpu64, fn, args, ref):
+        # [M] over the M envs past the tolerance: float32 is at fault
+        # there, and not the card.
+        if not spread:
+            return (card64 <= tol / 2) & (cpu64 > tol / 2)
+        limit = torch.clamp(SPREAD_FACTOR * float32_spread(fn, args, ref), min=tol)
+        ratios[which] = max(ratios[which], float((card64 / limit).max()))
+        return card64 <= limit
 
     worst, skipped, flips, resets, arbitrated, terms = 0.0, 0, 0, 0, 0, 0
     f64 = (0.0, 0.0, 0.0)  # worst qpos/qvel row: card-cpu, card-f64, cpu-f64
@@ -875,11 +894,18 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
             i = int(err.argmax())
             if float(err[i]) > f64[0]:
                 f64 = (float(err[i]), float(card64[i]), float(cpu64[i]))
-            state_bad = (err > tol) & ~(torch.maximum(card64, cpu64) > tol / 2)
-            arbitrated += int(((err > tol) & ~state_bad).sum())
-            _check(not bool(state_bad.any()),
-                   f"{int(state_bad.sum())} envs' physics states differ by more than "
-                   f"{tol:g} at step {t}, with float32 within {tol / 2:g} of float64")
+            idx = (err > tol).nonzero()[:, 0]
+            if len(idx):
+                at_fault = f32_at_fault(
+                    0, card64[idx], cpu64[idx],
+                    lambda q, qd: torch.cat(dynamics.step(
+                        env.model, q, qd, act[idx], env.substeps, env.contact,
+                        env.frame_skip), 1),
+                    (q[idx], qd[idx]), ref[idx])
+                arbitrated += len(idx)
+                _check(bool(at_fault.all()),
+                       f"{int((~at_fault).sum())} envs' physics states differ by more "
+                       f"than {tol:g} at step {t}, where float32 is not at fault")
             # Everything the env derives from its new state (obs, reward,
             # done): the CPU's own functions on the card's new state.
             step_fn = gym_base.phys_step
@@ -888,7 +914,7 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                 cps, want = cpu.step(ps_cpu, {"action": act})
             finally:
                 gym_base.phys_step = step_fn
-            flip_ok = _termination_margin(env, cps.env_state) < tol
+            flip_ok = env.termination_margin(cps.env_state) < tol
             obs64 = env.observe(*(x.double() for x in theirs))
         else:
             skip = torch.zeros(n, dtype=torch.bool)
@@ -900,6 +926,7 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         resets += int((want["step_type"] == 0).sum())
         terms += int((want["done"] & ~want["trunc"]).sum())
         bad = torch.zeros(n, dtype=torch.bool)
+        bad_fields = {}  # field -> its largest error among the envs past tol
         for k, w in want.items():
             g = got[k].cpu()
             _check(not w.is_floating_point() or bool(torch.isfinite(g).all()),
@@ -916,17 +943,23 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                     card_o, cpu_o = rel(g, obs64), rel(w, obs64)
                     to_f64["card_obs"].append(card_o[~skip])
                     to_f64["cpu_obs"].append(cpu_o[~skip])
-                    off = past & (torch.maximum(card_o, cpu_o) > tol / 2)
-                    obs_arbitrated += int(off.sum())
-                    past &= ~off
+                    idx = past.nonzero()[:, 0]
+                    if len(idx):
+                        at_fault = f32_at_fault(1, card_o[idx], cpu_o[idx], env.observe,
+                                                tuple(x[idx] for x in theirs), obs64[idx])
+                        obs_arbitrated += int(at_fault.sum())
+                        past[idx[at_fault]] = False
                 bad |= past
+                if bool(past.any()):
+                    bad_fields[k] = f"{float(err[past].max()):.3g}"
             else:
                 differ = (g != w).reshape(n, -1).any(1) & ~skip
                 if k in ("done", "step_type"):
                     differ &= ~flipped
                 _check(not bool(differ.any()), f"{k} differs at step {t}")
         _check(not bool(bad.any()),
-               f"{int(bad.sum())} envs differ by more than {tol:g} at step {t}")
+               f"{int(bad.sum())} envs differ by more than {tol:g} at step {t} "
+               f"(largest per field: {bad_fields})")
     f64s = {k: torch.cat(v) if physics else torch.zeros(0) for k, v in to_f64.items()}
     _check(not physics or tf32_seen == {"ieee"},
            f"TF32 inside the physics step: fp32_precision seen {tf32_seen}")
@@ -939,8 +972,12 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         f"envs left out on different sides of a penalty-force switch: {skipped}"
         + (f"; on the env whose qpos/qvel differ most ({f64[0]:.3g}), a float64 "
            f"step puts the card at {f64[1]:.3g} and the CPU at {f64[2]:.3g}; "
-           f"envs past the tolerance where float32 is off float64: state "
-           f"{arbitrated}, obs {obs_arbitrated}; TF32 off inside every physics step "
+           f"envs past the tolerance where float32 is at fault "
+           f"({'spread' if spread else 'strict'} rule): state {arbitrated}, obs "
+           f"{obs_arbitrated}"
+           + (f" (the card's distance to float64 over its limit there: at most "
+              f"{ratios[0]:.3g} and {ratios[1]:.3g})" if spread else "")
+           + "; TF32 off inside every physics step "
            "while the caller allowed it; every matrix solved on the card SPD"
            if physics else "")
     )
@@ -948,15 +985,16 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
             "arbitrated": arbitrated, "obs_arbitrated": obs_arbitrated, **f64s}
 
 
-def check_shares(what: str, stats: list) -> None:
-    """Of the envs stepped in the card-vs-CPU phases ``stats``, at most 1%
-    left out across a penalty-force switch and at most 1% whose state
-    passed only because float64 shows float32 off there."""
-    checked = sum(v["checked"] for v in stats)
+def check_shares(what: str, v: dict) -> None:
+    """Of the envs stepped in one card-vs-CPU phase ``v``, at most 1% left
+    out across a penalty-force switch and at most 1% whose state passed
+    only because float32 is at fault there.  (An obs past the tolerance is
+    held by its own limit alone: on HumanoidStandup, lying on its
+    contacts, two float32 computations of the obs of one state part by
+    more than the tolerance in over 1% of env steps.)"""
     for key, why in (("skipped", "on different sides of a penalty-force switch"),
-                     ("arbitrated", "past the tolerance where float32 is off float64")):
-        count = sum(v[key] for v in stats)
-        _check(count <= 0.01 * checked, f"{what}: {count} of {checked} envs {why}")
+                     ("arbitrated", "past the tolerance where float32 is at fault")):
+        _check(v[key] <= 0.01 * v["checked"], f"{what}: {v[key]} of {v['checked']} envs {why}")
 
 
 def check_f64_parity(what: str, card64, cpu64, tol: float) -> None:
@@ -1104,8 +1142,9 @@ def main() -> int:
                "no CartPole termination")
         _check(task != "HalfCheetah-v4" or (seen["terminated"], seen["truncated"]) == (0, n),
                "HalfCheetah ends its episodes by truncation alone")
-        vs = phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3, tol=tol)
-        check_shares(task, [vs])
+        vs = phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3, tol=tol,
+                                     spread=task.split("-")[0] in SPREAD)
+        check_shares(task, vs)
         if task != "CartPole-v1":
             check_f64_parity(f"{task} state", vs["card"], vs["cpu"], tol)
             check_f64_parity(f"{task} obs", vs["card_obs"], vs["cpu_obs"], tol)
@@ -1129,9 +1168,13 @@ def main() -> int:
              and t not in ("Ant-v4", "Humanoid-v4")]
     machine_frame.launches = 0
     fused_pool_resize.launches = 0
-    checks = [phase_float_card_vs_cpu(device, task, N_SHORT, warmup=10, steps=3,
-                                      tol=PHYSICS_TOL) for task in short]
-    check_shares(f"the {len(short)} short checks", checks)
+    checks = []
+    for task in short:
+        family = task.split("-")[0]
+        n = N_SHORT_FREE if family in FREE_BASE else N_SHORT
+        checks.append(phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3,
+                                              tol=PHYSICS_TOL, spread=family in SPREAD))
+        check_shares(task, checks[-1])
     for what in ("", "_obs"):
         check_f64_parity(f"the {len(short)} short checks, {what[1:] or 'state'}",
                          *(torch.cat([v[k + what] for v in checks]) for k in ("card", "cpu")),
@@ -1139,7 +1182,8 @@ def main() -> int:
     _check(fused_pool_resize.launches == machine_frame.launches == 0,
            "a Gym-MuJoCo id launched K1 or K2")
     print(f"short card-vs-CPU checks of {len(short)} Gym-MuJoCo ids at "
-          f"{N_SHORT} envs passed; K1 and K2 launched 0 times")
+          f"{N_SHORT} envs ({N_SHORT_FREE} with a free base) passed; K1 and K2 "
+          "launched 0 times")
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -123,6 +123,14 @@ class MujocoGymEnv(TorchEnv):
         """-> (reward [N], terminated [N], info dict of [N] tensors)."""
         raise NotImplementedError
 
+    def termination_margin(self, state):
+        """``[N]`` distance of each state to the bound on which the task
+        terminates, where :meth:`reward_done` compares a quantity computed
+        from the state (two devices may round it to either side).  Infinite
+        where it compares the state's own coordinates, which read the same
+        everywhere, or never terminates."""
+        return state["qpos"].new_full((state["qpos"].shape[0],), float("inf"))
+
     # -- TorchEnv contract -------------------------------------------------
 
     def state_spec(self):

@@ -287,6 +287,7 @@ class InvertedPendulumEnv(MujocoGymEnv):
 class InvertedDoublePendulumEnv(MujocoGymEnv):
     XML = "inverted_double_pendulum.xml"
     FRAME_SKIP = 5
+    TIP_FLOOR = 1.0  # terminated once the tip's height is at most this
     DEFAULT_CONFIG = {
         "reward_threshold": 9100.0,
         "reset_noise_scale": 0.1,
@@ -295,7 +296,7 @@ class InvertedDoublePendulumEnv(MujocoGymEnv):
 
     def __init__(self, config):
         super().__init__(config)
-        self._tip = self.model.site_names.index("tip")
+        self._tip_site = self.model.site_names.index("tip")
 
     def observe(self, qpos, qvel):
         # qfrc_constraint is zero in the penalty engine; its 3 slots stay
@@ -309,17 +310,23 @@ class InvertedDoublePendulumEnv(MujocoGymEnv):
     def extra_info_spec(self):
         return {}
 
+    def _tip(self, qpos):
+        return site_positions(self.model, qpos)[:, self._tip_site]
+
     def reward_done(self, before, after, action):
-        tip = site_positions(self.model, after["qpos"])[:, self._tip]
+        tip = self._tip(after["qpos"])
         x, y = tip[:, 0], tip[:, 2]
         dist_penalty = 0.01 * x * x + (y - 2.0) ** 2
         v1, v2 = after["qvel"][:, 1], after["qvel"][:, 2]
         vel_penalty = 1e-3 * v1 * v1 + 5e-3 * v2 * v2
         reward = 10.0 - dist_penalty - vel_penalty
-        terminated = y <= 1.0
+        terminated = y <= self.TIP_FLOOR
         if bool(self.config["reward_if_not_terminated"]):
             reward = torch.where(terminated, 0.0, reward)
         return reward, terminated, {}
+
+    def termination_margin(self, state):
+        return (self._tip(state["qpos"])[:, 2] - self.TIP_FLOOR).abs()
 
 
 class PusherEnv(MujocoGymEnv):

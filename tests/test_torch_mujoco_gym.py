@@ -200,11 +200,16 @@ def test_card_step_matches_cpu(cuda_device, task):
     """One env step of 4096 envs on the card against the CPU port, within
     ``STEP_TOL``, except envs whose substeps fall on different sides of a
     switch of the penalty forces on the card and on the CPU (under 1% of
-    them).  An env past ``STEP_TOL`` passes only where a float64 step (on
-    the card) shows a float32 step off by more than ``STEP_TOL / 2`` (under
-    1% of them too), and over all envs the card's float32 steps are as
-    close to float64 as the CPU's: the 99th percentile within 2x (plus
-    1e-6), the count past ``STEP_TOL / 2`` within 1.5x (plus 5)."""
+    them).  On HalfCheetah that holds every other env.  Ant's and
+    Humanoid's float32 steps land past ``STEP_TOL`` of a float64 step (on
+    the card) on some states on either device, so there an env past
+    ``STEP_TOL`` (under 1% of them) passes only where the card's step lies
+    within ``STEP_TOL`` of float64, or within 4x the farthest that the
+    CPU's float32 steps from its state and from 16 neighbours an ulp or
+    two away land from float64.  Over all envs the card's
+    float32 steps are as close to float64 as the CPU's: the 99th and
+    99.9th percentiles within 2x (plus 1e-6), the count past
+    ``STEP_TOL / 2`` within 1.5x (plus 5)."""
     n = 4096
     pool = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=n, device="cpu")
     pool.reset()
@@ -234,9 +239,22 @@ def test_card_step_matches_cpu(cuda_device, task):
         crossed |= (tdyn.switch_sides(model, sq) != tdyn.switch_sides(model, cq).cpu()).any(1)
     past = (err > STEP_TOL) & ~crossed
     assert int(crossed.sum()) < 0.01 * n
-    assert int(past.sum()) < 0.01 * n
-    off = torch.maximum(card64, cpu64) > STEP_TOL / 2
-    assert not bool((past & ~off).any()), float(err[past & ~off].max())
+    if task == TASK:
+        assert not bool(past.any()), float(err[past].max())
+    elif past.any():
+        assert int(past.sum()) < 0.01 * n
+        idx = past.nonzero()[:, 0]
+        sub = [x[idx] for x in (q, qd, u)]
+        sub_ref = [x[idx] for x in ref]
+        f32 = rel(tdyn.step(model, *sub, *args), sub_ref)
+        gen = torch.Generator().manual_seed(4)
+        for _ in range(16):
+            moved = [x * (1 + (2 * torch.randint(0, 2, x.shape, generator=gen) - 1) * 2.0**-23)
+                     for x in sub[:2]]
+            f32 = torch.maximum(f32, rel(tdyn.step(model, *moved, sub[2], *args), sub_ref))
+        limit = torch.clamp(4 * f32, min=STEP_TOL)
+        assert bool((card64[idx] <= limit).all()), float((card64[idx] / limit).max())
     card64, cpu64 = card64[~crossed], cpu64[~crossed]
-    assert float(card64.quantile(0.99)) <= 2 * float(cpu64.quantile(0.99)) + 1e-6
+    for p in (0.99, 0.999):
+        assert float(card64.quantile(p)) <= 2 * float(cpu64.quantile(p)) + 1e-6, p
     assert int((card64 > STEP_TOL / 2).sum()) <= 1.5 * int((cpu64 > STEP_TOL / 2).sum()) + 5

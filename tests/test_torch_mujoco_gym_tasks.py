@@ -242,3 +242,31 @@ def test_pusher_rejection_is_bounded():
     qpos, _ = env.reset_qpos_qvel(d)
     assert qpos[0, -4:-2].tolist() == far[0].tolist()
     assert qpos[1, -4:-2].tolist() == d["cylinder"][1, -1].tolist()
+
+
+@pytest.mark.parametrize(
+    "task", ["InvertedDoublePendulum-v4", "InvertedPendulum-v4", "Hopper-v4", "Ant-v4"]
+)
+def test_termination_margin(task):
+    """InvertedDoublePendulum terminates on its tip's height, which two
+    devices may round to either side of the floor: its margin is that
+    height's distance to the floor, and the flag flips across it.  The
+    others compare the state's own coordinates: their margin is
+    infinite."""
+    from envpool_tpu_torch.physics.dynamics import site_positions
+
+    env = envpool_tpu_torch.make_spec(task, num_envs=64, device="cpu").env
+    r = np.random.default_rng(2)
+    q = torch.as_tensor(env.model.qpos0 + r.uniform(-1.5, 1.5, (64, env.model.nq)), dtype=torch.float32)
+    qd = torch.as_tensor(r.normal(0, 1, (64, env.model.nv)), dtype=torch.float32)
+    state = {"qpos": q, "qvel": qd}
+    margin = env.termination_margin(state)
+    assert margin.shape == (64,)
+    if not task.startswith("InvertedDouble"):
+        assert bool(torch.isinf(margin).all())
+        return
+    z = site_positions(env.model, q)[:, env.model.site_names.index("tip"), 2]
+    torch.testing.assert_close(margin, (z - env.TIP_FLOOR).abs())
+    _, terminated, _ = env.reward_done(state, state, torch.zeros(64, env.model.nu))
+    assert torch.equal(terminated, z <= env.TIP_FLOOR)
+    assert 0 < int(terminated.sum()) < 64

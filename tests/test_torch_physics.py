@@ -24,7 +24,9 @@ Tolerances:
   against float64 on such states; on states far deeper in the ground than
   a rollout goes, tens of cm, it moves one past this bar in either
   package);
-* a 10-step trajectory: ``TRAJ_TOL`` = 1e-3 · (1 + |jax|).
+* a 10-step trajectory: ``TRAJ_TOL`` = 1e-3 · (1 + |jax|) on every env
+  where JAX's float32 spread stays within ``TRAJ_TOL / 2`` of float64
+  (HalfCheetah: every env).
 """
 
 import dataclasses
@@ -483,10 +485,17 @@ def test_ant_ten_steps_stay_within_trajectory_tolerance(free_cases):
     """Ten Ant env steps of 96 envs from states 30 random steps into an
     episode.  Such a trajectory runs through contacts that switch on and
     off, and float32 alone moves it: JAX's own float32 trajectory leaves
-    ``TRAJ_TOL`` of a float64 one in about a tenth of the envs.  So three
-    quarters of the envs must stay within ``TRAJ_TOL`` of JAX, and the
-    port's drift from float64 must be no larger than JAX's: as many envs
-    past ``TRAJ_TOL`` (1.5x, plus 4) and the median drift within 2x."""
+    ``TRAJ_TOL / 2`` of a float64 one in about a seventh of the envs, and
+    on such an env another float32 trajectory (the port's, or JAX's from
+    the state moved by one ulp) lands elsewhere.
+
+    So the envs are split by JAX's float32 spread: its trajectory and four
+    more from the state with every coordinate moved by one float32 ulp.
+    Where all five stay within ``TRAJ_TOL / 2`` of float64, float32 does
+    not decide the result, and the port stays within ``TRAJ_TOL`` of JAX.
+    On the rest the port's drift from float64 is no larger than JAX's: no
+    farther than JAX's widest run, as many envs past ``TRAJ_TOL`` (1.5x,
+    plus 4) and the median drift within 2x."""
     c = free_cases("ant")
     n = 96
     r = np.random.default_rng(13)
@@ -495,27 +504,40 @@ def test_ant_ten_steps_stay_within_trajectory_tolerance(free_cases):
     jax_step = _jvmap(lambda q, qd, u: jdyn._step_impl(c.jm, q, qd, u, 1, jdyn.ContactParams(), 5))
     for _ in range(30):
         q, qd = jax_step(q, qd, r.uniform(-1, 1, (n, c.jm.nu)).astype(np.float32))
-    jq, jqd = np.array(q), np.array(qd)
-    tq, tqd = _t(jq, jqd)
-    fq, fqd = tq.double(), tqd.double()
-    for _ in range(10):
-        u = r.uniform(-1, 1, (n, c.jm.nu)).astype(np.float32)
-        jq, jqd = jax_step(jq, jqd, u)
-        tq, tqd = tdyn.step(c.tm, tq, tqd, torch.as_tensor(u), 1, tdyn.ContactParams(), 5)
-        fq, fqd = tdyn.step(c.tm, fq, fqd, torch.as_tensor(u).double(), 1, tdyn.ContactParams(), 5)
+    us = [r.uniform(-1, 1, (n, c.jm.nu)).astype(np.float32) for _ in range(10)]
+    q, qd = np.array(q), np.array(qd)
+
+    def jax_run(q, qd):
+        for u in us:
+            q, qd = jax_step(q, qd, u)
+        return q, qd
 
     def drift(a, b):
         a, b = (np.concatenate([np.asarray(x[0], np.float64), np.asarray(x[1], np.float64)], 1)
                 for x in (a, b))
         return (np.abs(a - b) / (1 + np.abs(b))).max(1)
 
+    tq, tqd = _t(q, qd)
+    fq, fqd = tq.double(), tqd.double()
+    for u in us:
+        tq, tqd = tdyn.step(c.tm, tq, tqd, torch.as_tensor(u), 1, tdyn.ContactParams(), 5)
+        fq, fqd = tdyn.step(c.tm, fq, fqd, torch.as_tensor(u).double(), 1, tdyn.ContactParams(), 5)
+    jq, jqd = jax_run(q, qd)
     to_jax = drift((tq, tqd), (jq, jqd))
     port64 = drift((tq, tqd), (fq, fqd))
     jax64 = drift((jq, jqd), (fq, fqd))
+    spread = jax64.copy()
+    for _ in range(4):
+        ulp = [(x * (1 + r.choice([-1, 1], x.shape) * 2.0**-23)).astype(np.float32) for x in (q, qd)]
+        spread = np.maximum(spread, drift(jax_run(*ulp), (fq, fqd)))
     assert np.isfinite(to_jax).all()
-    assert (to_jax <= TRAJ_TOL).mean() >= 0.75, np.sort(to_jax)[-12:]
-    assert (port64 > TRAJ_TOL).sum() <= 1.5 * (jax64 > TRAJ_TOL).sum() + 4
-    assert np.median(port64) <= 2 * np.median(jax64)
+    well = spread <= TRAJ_TOL / 2
+    assert well.sum() >= n // 2  # the envs held to the bar are most of them
+    assert (to_jax[well] <= TRAJ_TOL).all(), np.sort(to_jax[well])[-4:]
+    rest = ~well
+    assert (port64 <= max(TRAJ_TOL, spread.max())).all(), port64.max()
+    assert (port64[rest] > TRAJ_TOL).sum() <= 1.5 * (jax64[rest] > TRAJ_TOL).sum() + 4
+    assert np.median(port64[rest]) <= 2 * np.median(jax64[rest])
 
 
 def test_switch_sides(models, states):
