@@ -11,8 +11,10 @@ repository's hand-built pong cart) at 1024 envs, CartPole-v1 at 16384 envs
 and HalfCheetah-v4, Ant-v4 and Humanoid-v4 (the rigid-body physics, the
 last two with a free base) at 8192 envs, it drives the gymnasium, dm and
 functional entry points, checks the card against the CPU port, profiles
-engine steps and times a rollout; every other Gym-MuJoCo id gets a short
-card-vs-CPU check at 256 envs (1024 with a free base).  It also times K2
+engine steps and times a rollout; so too for the dm_control suite's
+CheetahRun-v1 at 4096 envs, whose resets must match the CPU's bit for bit.
+Every other Gym-MuJoCo id gets a short card-vs-CPU check at 256 envs (1024
+with a free base), and every other dm_control id one at 256 envs.  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
 holds it to its chain bound: each frame's most emulated instructions on
 one machine times one dependent shared-memory load, measured on the card.
@@ -68,6 +70,44 @@ SPREAD_FACTOR = 4.0
 # physics (tests/test_torch_physics.py).
 CARTPOLE_TOL = 2e-6
 PHYSICS_TOL = 1e-4
+# dm_control: CheetahRun-v1 at the width of bench.py's sweep row
+# (bench.py:201); the other 25 ids a short check at N_SHORT envs.
+N_DMC = 4096
+# The dm_control ids held to the SPREAD rule: humanoid_CMU's float32 step
+# lands past PHYSICS_TOL of float64 on some states on either device
+# (PERF.md, section 6); walker, hopper and humanoid pass the strict rule.
+DMC_SPREAD = ("HumanoidCMUStand-v1", "HumanoidCMUWalk-v1", "HumanoidCMURun-v1")
+
+
+def host_cpu() -> str:
+    """What tells one host from another (its name, the card's UUID, the
+    CPU's count, ATen's CPU vector unit, a hash of the CPU's flags), and how
+    far the CPU's float32 ``sin`` and ``cos`` land from float64 over the
+    angles CartPole visits (the CPU port is the card's reference in the
+    card-vs-CPU phases)."""
+    import hashlib
+    import os
+    import platform
+
+    import torch
+
+    from envpool_tpu_torch.tools.k2_probe import smi
+
+    flags = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = next((line.partition(":")[2].strip() for line in f
+                          if line.split(":")[0].strip() in ("flags", "Features")), "")
+    except OSError:
+        pass
+    x = torch.linspace(-0.3, 0.3, 65536).reshape(-1, 4)[:, 2]  # strided, as CartPole's
+    errs = [float((fn(x).double() - fn(x.double())).abs().max())
+            for fn in (torch.sin, torch.cos)]
+    return (f"host: {platform.node()}, card {smi('uuid')}; CPU {platform.machine()} x "
+            f"{os.cpu_count()}, ATen {torch.backends.cpu.get_cpu_capability()}, flags "
+            f"{hashlib.sha1(flags.encode()).hexdigest()[:12]} ({len(flags.split())}), "
+            f"{torch.get_num_threads()} threads; its float32 sin, cos within "
+            f"{errs[0]:.3g}, {errs[1]:.3g} of float64 on [-0.3, 0.3]")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -347,8 +387,10 @@ def phase_throughput(device: str, task: str, n: int, steps: int,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     _check(bool((ts["step_type"] >= 0).all()), "rollout output")
-    _check(not ts["obs"].is_floating_point() or bool(torch.isfinite(ts["obs"]).all()),
-           "rollout obs not finite")
+    for k, v in ts.items():
+        if k == "obs" or k.startswith("obs:"):
+            _check(not v.is_floating_point() or bool(torch.isfinite(v).all()),
+                   f"rollout {k} not finite")
     return steps * n / dt, fused_pool_resize.launches - before
 
 
@@ -653,11 +695,23 @@ def phase_machine_adapters(device: str, n: int, rom_path: str) -> int:
 # ---------------------------------------------------------------------------
 
 
-def phase_float_adapters(device: str, task: str, n: int, episode: int) -> dict:
+def _obs_shapes(pool, n: int) -> dict:
+    """``{name: (n, ...)}`` of a pool's observation fields: ``obs`` for a
+    single array, else each ``obs:<name>`` (dm_control's dict obs)."""
+    spec = pool.spec.state_array_spec
+    return {k.removeprefix("obs:"): (n, *v.shape) for k, v in spec.items()
+            if k == "obs" or k.startswith("obs:")}
+
+
+def phase_float_adapters(device: str, task: str, n: int, episode: int,
+                         dm_episode: bool = False) -> dict:
     """A classic-control or physics task through the gymnasium pool made
     with no ``device`` argument (which must land on ``device``), a dm pool
     and the functional handle; the gymnasium pool truncates at ``episode``
-    steps.  Returns what the gymnasium run saw."""
+    steps.  With ``dm_episode``, the dm pool runs an episode of ``episode``
+    steps too: discount 1.0 on every step, LAST at the truncation and FIRST
+    after it (dm_control's time-limit-only episodes).  Returns what the
+    gymnasium run saw."""
     import torch
 
     import envpool_tpu_torch
@@ -669,7 +723,11 @@ def phase_float_adapters(device: str, task: str, n: int, episode: int) -> dict:
     _check(pool.pool_state.key.device.type == device, "default device is not the card")
     sample = _sampler(_spec(pool), n, device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    obs_shape = (n, *pool.spec.state_array_spec["obs"].shape)
+    shapes = _obs_shapes(pool, n)
+
+    def fields(obs):
+        return obs if isinstance(obs, dict) else {"obs": obs}
+
     obs, info = pool.reset()
     seen = {"terminated": 0, "truncated": 0, "resets": 0}
     reward = 0.0
@@ -679,31 +737,45 @@ def phase_float_adapters(device: str, task: str, n: int, episode: int) -> dict:
         seen["truncated"] += int(trunc.sum())
         seen["resets"] += int((info["elapsed_step"] == 0).sum())
         reward += float(rew.sum())
-    _check(tuple(obs.shape) == obs_shape and obs.dtype == torch.float32,
-           f"obs {tuple(obs.shape)} {obs.dtype}")
-    _check(obs.device.type == device, f"obs on {obs.device}")
-    _check(bool(torch.isfinite(obs).all()) and np.isfinite(reward), "non-finite output")
+    got = {k: tuple(v.shape) for k, v in fields(obs).items()}
+    _check(got == shapes, f"obs shapes {got}, expected {shapes}")
+    for k, v in fields(obs).items():
+        _check(v.dtype == torch.float32 and v.device.type == device,
+               f"obs {k}: {v.dtype} on {v.device}")
+        _check(bool(torch.isfinite(v).all()), f"obs {k} not finite")
+    _check(np.isfinite(reward), "non-finite reward")
     _check(seen["truncated"] > 0 and seen["resets"] > 0,
            f"truncation at {episode} steps and auto-reset: {seen}")
-    print(f"{task} gymnasium (no device argument: {obs.device}): obs {tuple(obs.shape)}; "
+    print(f"{task} gymnasium (no device argument: {device}): obs {got}; "
           f"{episode + 2} random steps: {seen}, reward sum {reward:.6g}")
 
-    dm = envpool_tpu_torch.make_dm(task, num_envs=n, seed=SEED, device=device)
+    dm = envpool_tpu_torch.make_dm(task, num_envs=n, seed=SEED, device=device,
+                                   **({"max_episode_steps": episode} if dm_episode else {}))
     ts = dm.reset()
     _check(bool((ts.step_type == 0).all()), "dm reset step_type")
-    for _ in range(3):
+    for t in range(1, (episode + 1 if dm_episode else 3) + 1):
         ts = dm.step(sample(gen).cpu().numpy())
-    _check(ts.observation.obs.shape == obs_shape, "dm obs shape")
-    _check(bool(np.isfinite(ts.observation.obs).all()), "dm obs not finite")
-    print(f"{task} dm: 3 steps, obs {ts.observation.obs.shape}, step_type "
-          f"{sorted(set(ts.step_type.tolist()))}")
+        if dm_episode:
+            want = 2 if t == episode else 0 if t == episode + 1 else 1
+            _check(bool((ts.step_type == want).all()),
+                   f"dm step_type at step {t}: {sorted(set(ts.step_type.tolist()))}, "
+                   f"expected {want}")
+            _check(bool((ts.discount == 1.0).all()), f"dm discount at step {t}")
+    for k, shape in shapes.items():
+        v = getattr(ts.observation, k)
+        _check(v.shape == shape and bool(np.isfinite(v).all()), f"dm obs {k}")
+    print(f"{task} dm: {t} steps, obs {sorted(shapes)}, step_type "
+          f"{sorted(set(ts.step_type.tolist()))}"
+          + (f"; discount 1.0 throughout, LAST at step {episode}, FIRST after"
+             if dm_episode else ""))
 
     handle, recv, send, step = pool.xla()
     for _ in range(3):
         handle, (obs, rew, term, trunc, info) = step(handle, sample(gen))
-    _check(tuple(obs.shape) == obs_shape and obs.device.type == device,
+    got = {k: tuple(v.shape) for k, v in fields(obs).items()}
+    _check(got == shapes and all(v.device.type == device for v in fields(obs).values()),
            "functional obs")
-    print(f"{task} functional: 3 steps, obs {tuple(obs.shape)} on {obs.device}")
+    print(f"{task} functional: 3 steps, obs {got} on {device}")
     return seen
 
 
@@ -719,18 +791,30 @@ def _cartpole_margin(ts):
     )
 
 
-def _physics_f64(env, ps, act, device):
-    """``[N, nq + nv]``: qpos and qvel after one env step of every row of a
-    pool state in float64 (on the card, which runs float64 at its float32
+def _float64(tree, device):
+    """A state tree on ``device``, its float tensors in float64."""
+    import torch
+
+    from envpool_tpu_torch.core.engine import _tree_map
+
+    return _tree_map(lambda x: x.to(device, torch.float64 if x.is_floating_point()
+                                    else x.dtype), tree)
+
+
+def _physics_f64(env, state, act, device):
+    """``[N, nq + nv]``: qpos and qvel after one env step of every row of an
+    env state in float64 (on the card, which runs float64 at its float32
     rate), on the CPU."""
     import torch
 
-    from envpool_tpu_torch.physics import dynamics
-
-    q, qd = (ps.env_state[k].to(device, torch.float64) for k in ("qpos", "qvel"))
-    out = dynamics.step(env.model, q, qd, act.to(device, torch.float64),
-                        env.substeps, env.contact, env.frame_skip)
+    out = env.physics_step(_float64(state, device), act.to(device, torch.float64))
     return torch.cat(out, 1).cpu()
+
+
+def _rows(tree, idx):
+    from envpool_tpu_torch.core.engine import _tree_map
+
+    return _tree_map(lambda x: x[idx], tree)
 
 
 def _rel(a, b):
@@ -761,29 +845,47 @@ def _quantiles(x) -> str:
 
 
 def _physics_crossed(env, ps, act, device):
-    """``[N]`` True where the card's and the CPU's substeps of one env step
-    from the same state put a stepped env on different sides of a switch
-    of the penalty forces (a contact's depth crossing 0, a joint crossing
-    its limit): the forces jump there, so the two may part by far more
-    than rounding."""
+    """The CPU's env step of every row of a pool state, taken one substep
+    at a time, and ``[N]`` True where the card's and the CPU's substeps put
+    a stepped env on different sides of a switch of the penalty forces (a
+    contact's depth crossing 0, a joint crossing its limit): the forces
+    jump there, so the two may part by far more than rounding.  Returns
+    ``((qpos, qvel), crossed)``; the step is the env's ``physics_step``
+    bit for bit."""
     import torch
+
+    import dataclasses
 
     from envpool_tpu_torch.physics import dynamics
 
-    model = env.model
-    q, qd = ps.env_state["qpos"], ps.env_state["qvel"]
-    cq, cqd, cact = q.to(device), qd.to(device), act.to(device)
+    # one substep at a time: a model whose timestep is the substep's
+    model = dataclasses.replace(env.model, timestep=env.model.timestep / env.substeps)
+    dtype = torch.promote_types(torch.float32, env.physics_dtype or torch.float32)
+    q, qd = (ps.env_state[k].to(dtype) for k in ("qpos", "qvel"))
+    ctrl = env.control(ps.env_state, act).to(dtype)
+    cq, cqd, cact = q.to(device), qd.to(device), ctrl.to(device)
     crossed = torch.zeros(q.shape[0], dtype=torch.bool)
-    for _ in range(env.frame_skip * env.substeps - 1):
-        q, qd = dynamics.step(model, q, qd, act, 1, env.contact)
+    for i in range(env.frame_skip * env.substeps):
+        q, qd = dynamics.step(model, q, qd, ctrl, 1, env.contact)
+        if i + 1 == env.frame_skip * env.substeps:
+            break  # the last substep's sides do not change the step
         cq, cqd = dynamics.step(model, cq, cqd, cact, 1, env.contact)
         sides = dynamics.switch_sides(model, cq).cpu()
         crossed |= (sides != dynamics.switch_sides(model, q)).any(1)
-    return crossed & ~ps.autoreset
+    return (q.float(), qd.float()), crossed & ~ps.autoreset
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
 
 
 def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
-                            steps: int, tol: float, spread: bool = False) -> dict:
+                            steps: int, tol: float, spread: bool = False,
+                            warm: dict | None = None) -> dict:
     """After ``warmup`` random steps on the card, ``steps`` engine steps
     each taken on the card and on the CPU from the same pool state and
     action: float fields within ``tol * (1 + |cpu|)``, the rest equal.  A
@@ -809,6 +911,12 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     rule, against the float64 obs of that state.  The caller allows TF32,
     and the physics must still run its matmuls without it.
 
+    With ``warm``, ids that step one model alike and whose resets agree
+    share one warm-up: the first warms up and stores its state there, the
+    next starts its checked steps from it (dm_control tasks of one domain,
+    which never terminate within the warm-up, differ in reward and obs
+    alone).
+
     Returns the counts it printed and each stepped env's distance to
     float64 on the card and on the CPU, of its state and of its obs, for
     :func:`check_shares` and :func:`check_f64_parity`."""
@@ -816,7 +924,7 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
 
     import envpool_tpu_torch
     from envpool_tpu_torch.core.engine import Engine, PoolState, _tree_map
-    from envpool_tpu_torch.envs.mujoco_gym import base as gym_base
+    from envpool_tpu_torch.envs.physics_env import PhysicsEnv
     from envpool_tpu_torch.physics import dynamics
 
     card = _pool(device, task, n)
@@ -827,9 +935,20 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     gen = torch.Generator().manual_seed(SEED)
     sample = _sampler(_spec(card), n, "cpu")
     ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
-    for _ in range(warmup):
-        ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
-    physics = isinstance(env, gym_base.MujocoGymEnv)
+    physics = isinstance(env, PhysicsEnv)
+    key = physics and (type(env), env.model, env.contact, env.substeps,
+                       env.frame_skip, env.physics_dtype)
+    shared = warm.get(key) if warm is not None and physics else None
+    if shared is not None and _tree_equal(shared[0], ps.env_state):
+        for _ in range(warmup):  # the same actions from here on
+            sample(gen)
+        ps = shared[1]
+    else:
+        start = ps.env_state
+        for _ in range(warmup):
+            ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
+        if warm is not None and physics:
+            warm[key] = (start, ps)
     matmul = torch.backends.cuda.matmul
     tf32_seen = set()
     solve = dynamics.spd_solve
@@ -879,14 +998,12 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         if physics:
             # The physics state: the card's float32 step against the CPU's,
             # and both against a float64 step.
-            skip = _physics_crossed(env, ps_cpu, act, device)
+            mine, skip = _physics_crossed(env, ps_cpu, act, device)
             stepped = ~(ps_cpu.autoreset | skip)
-            q, qd = ps_cpu.env_state["qpos"], ps_cpu.env_state["qvel"]
-            mine = dynamics.step(env.model, q, qd, act, env.substeps, env.contact,
-                                 env.frame_skip)
+            state = ps_cpu.env_state
             theirs = tuple(ps.env_state[k].cpu() for k in ("qpos", "qvel"))
             a, b = torch.cat(theirs, 1), torch.cat(mine, 1)
-            ref = _physics_f64(env, ps_cpu, act, device)
+            ref = _physics_f64(env, state, act, device)
             card64, cpu64 = rel(a, ref), rel(b, ref)
             to_f64["card"].append(card64[stepped])
             to_f64["cpu"].append(cpu64[stepped])
@@ -896,27 +1013,35 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                 f64 = (float(err[i]), float(card64[i]), float(cpu64[i]))
             idx = (err > tol).nonzero()[:, 0]
             if len(idx):
+                rows = _rows(state, idx)
                 at_fault = f32_at_fault(
                     0, card64[idx], cpu64[idx],
-                    lambda q, qd: torch.cat(dynamics.step(
-                        env.model, q, qd, act[idx], env.substeps, env.contact,
-                        env.frame_skip), 1),
-                    (q[idx], qd[idx]), ref[idx])
+                    lambda q, qd: torch.cat(env.physics_step(
+                        dict(rows, qpos=q, qvel=qd), act[idx]), 1),
+                    (rows["qpos"], rows["qvel"]), ref[idx])
                 arbitrated += len(idx)
                 _check(bool(at_fault.all()),
                        f"{int((~at_fault).sum())} envs' physics states differ by more "
                        f"than {tol:g} at step {t}, where float32 is not at fault")
             # Everything the env derives from its new state (obs, reward,
             # done): the CPU's own functions on the card's new state.
-            step_fn = gym_base.phys_step
-            gym_base.phys_step = lambda *args, **kwargs: theirs
+            env.physics_step = lambda *args, **kwargs: theirs
             try:
                 cps, want = cpu.step(ps_cpu, {"action": act})
             finally:
-                gym_base.phys_step = step_fn
+                del env.physics_step
             flip_ok = env.termination_margin(cps.env_state) < tol
-            obs64 = env.observe(*(x.double() for x in theirs))
+            new_state = dict(state, qpos=theirs[0], qvel=theirs[1])
+            obs_keys = list(env.obs_fields(_rows(new_state, slice(0, 1))))
+
+            def flat_obs(st):
+                fields = env.obs_fields(st)
+                return torch.cat([fields[k].reshape(st["qpos"].shape[0], -1)
+                                  for k in obs_keys], 1)
+
+            obs64 = flat_obs(_float64(new_state, "cpu"))
         else:
+            obs_keys = []
             skip = torch.zeros(n, dtype=torch.bool)
             cps, want = cpu.step(ps_cpu, {"action": act})
             flip_ok = _cartpole_margin(want) < tol
@@ -927,8 +1052,12 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         terms += int((want["done"] & ~want["trunc"]).sum())
         bad = torch.zeros(n, dtype=torch.bool)
         bad_fields = {}  # field -> its largest error among the envs past tol
-        for k, w in want.items():
-            g = got[k].cpu()
+        # A physics env's obs fields are held as one block.
+        fields = {k: (got[k].cpu(), w) for k, w in want.items() if k not in obs_keys}
+        if obs_keys:
+            fields["obs"] = tuple(torch.cat([x[k].cpu().reshape(n, -1) for k in obs_keys], 1)
+                                  for x in (got, want))
+        for k, (g, w) in fields.items():
             _check(not w.is_floating_point() or bool(torch.isfinite(g).all()),
                    f"{k} not finite on the card at step {t}")
             excused = skip | flipped if k in ("reward", "discount") else skip
@@ -936,7 +1065,7 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                 err = rel(g.reshape(n, -1), w.reshape(n, -1))
                 worst = max(worst, float(err[~excused].max()))
                 past = (err > tol) & ~excused
-                if physics and k == "obs":
+                if obs_keys and k == "obs":
                     # Contact forces in an obs (kp times a depth, kd times a
                     # speed) carry float32's rounding past the tolerance on
                     # some states; there float64 shows a float32 obs off.
@@ -945,18 +1074,36 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                     to_f64["cpu_obs"].append(cpu_o[~skip])
                     idx = past.nonzero()[:, 0]
                     if len(idx):
-                        at_fault = f32_at_fault(1, card_o[idx], cpu_o[idx], env.observe,
-                                                tuple(x[idx] for x in theirs), obs64[idx])
+                        rows = _rows(new_state, idx)
+                        at_fault = f32_at_fault(
+                            1, card_o[idx], cpu_o[idx],
+                            lambda q, qd: flat_obs(dict(rows, qpos=q, qvel=qd)),
+                            (rows["qpos"], rows["qvel"]), obs64[idx])
                         obs_arbitrated += int(at_fault.sum())
                         past[idx[at_fault]] = False
                 bad |= past
                 if bool(past.any()):
-                    bad_fields[k] = f"{float(err[past].max()):.3g}"
+                    i = int(err.masked_fill(~past, 0).argmax())
+                    bad_fields[k] = (
+                        f"{float(err[i]):.3g} at env {i} (reset row "
+                        f"{bool(ps_cpu.autoreset[i])}, elapsed {int(ps_cpu.elapsed[i])}): "
+                        f"card {g.reshape(n, -1)[i, :8].tolist()}, "
+                        f"cpu {w.reshape(n, -1)[i, :8].tolist()}")
             else:
                 differ = (g != w).reshape(n, -1).any(1) & ~skip
                 if k in ("done", "step_type"):
                     differ &= ~flipped
                 _check(not bool(differ.any()), f"{k} differs at step {t}")
+        if bool(bad.any()) and not physics:
+            # Which side is off: both against the CPU's float64 step.
+            _, want64 = cpu.step(PoolState(_float64(ps_cpu.env_state, "cpu"), *(
+                ps_cpu.key, ps_cpu.elapsed, ps_cpu.autoreset, ps_cpu.full_reset)),
+                {"action": act})
+            ref = want64["obs"].reshape(n, -1)
+            bad_fields["float64 step"] = (
+                f"card {float(rel(got['obs'].cpu().reshape(n, -1), ref)[bad].max()):.3g}, "
+                f"cpu {float(rel(want['obs'].reshape(n, -1), ref)[bad].max()):.3g} "
+                f"off on those envs; {int((bad & ps_cpu.autoreset).sum())} reset rows")
         _check(not bool(bad.any()),
                f"{int(bad.sum())} envs differ by more than {tol:g} at step {t} "
                f"(largest per field: {bad_fields})")
@@ -1042,41 +1189,20 @@ def phase_spd_solve(device: str, n: int, nv: int) -> None:
           f"residual {res:.3g}")
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    import envpool_tpu_torch  # (fails outside the repository)
+def section_pong(device: str, card: str) -> tuple[dict, int]:
+    """K1 against its plain version and PongLite-v5 at ``N_ENVS`` envs
+    through every phase; returns K1's record and its launches on the
+    PongLite-v5 path."""
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
-    from envpool_tpu_torch.ops.cuda_machine import machine_frame
 
-    t_start = time.perf_counter()
-    device = "cuda"
-    kind = torch.cuda.get_device_name(0)
-    from envpool_tpu_torch.tools.k2_probe import carts, smi
-
-    card = smi("name,power.limit")
-    print(f"device: {kind}")
-    print(card)
-    torch.backends.cuda.matmul.fp32_precision = "ieee"
-    torch.backends.cudnn.allow_tf32 = False
-
-    # Build both kernels at once (one nvcc each).
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(k.build) for k in (fused_pool_resize, machine_frame)]
-        k1_build, k2_build = (b.result() for b in builds)
-    print(f"K1 build: {k1_build:.1f} s; K2 build: {k2_build:.1f} s (in parallel)")
-
-    # -- PongLite-v5 and K1 --------------------------------------------------
     stats = phase_kernel_vs_plain(device, N_ENVS)
     fused_pool_resize.launches = 0
     phase_adapters(device, N_ENVS)
     k1_launches = fused_pool_resize.launches
     _check(k1_launches > 0, "the PongLite-v5 path never launched K1")
     print(f"K1 launches on the PongLite-v5 path: {k1_launches}")
-    phase_card_vs_cpu(device, "PongLite-v5", 8, 100, max_episode_steps=150)
+    # 50 steps, to leave the script's time to the physics phases
+    phase_card_vs_cpu(device, "PongLite-v5", 8, 50, max_episode_steps=150)
     phase_profile(device, "PongLite-v5", N_ENVS, 8, warmup=4)
     # The rollouts of PongLite-v5 (64 steps) and CartPole-v1 (512) are
     # shorter than bench.py's, to leave the script's time to the physics.
@@ -1091,8 +1217,17 @@ def main() -> int:
         f"{steps_per_s:,.0f} env-steps/s = {steps_per_s * 4:,.0f} frames/s "
         f"(frame_skip 4) on {card}"
     )
+    return stats, k1_launches
 
-    # -- Machine2600-v0 and K2 ------------------------------------------------
+
+def section_machine(device: str, card: str) -> tuple[dict, int]:
+    """K2 against its plain version and timed, and Machine2600-v0 at
+    ``N_MACHINES`` envs through every phase; returns K2's record and its
+    launches on the Machine2600-v0 path."""
+    from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+    from envpool_tpu_torch.tools.k2_probe import carts
+
     k2_err = phase_k2_vs_plain(device)
     k2_stats = phase_k2_timing(device, N_MACHINES, 4 * N_MACHINES)
     k2_stats["max_abs_err"] = max(k2_err, k2_stats["max_abs_err"])
@@ -1125,65 +1260,169 @@ def main() -> int:
         f"{machine_steps:,.1f} env-steps/s = {machine_steps * 35:,.0f} emulated "
         f"frames/s (35 per env step) on {card}"
     )
+    return k2_stats, k2_launches
 
-    # -- CartPole-v1 and the Gym-MuJoCo physics: no Pallas kernel on their path
+
+def phase_bank_reset(device: str, task: str, n: int) -> None:
+    """``n`` resets of ``task`` on the card and on the CPU from one seed:
+    the same states bit for bit (CheetahRun gathers rows of its committed
+    bank on either device)."""
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch.core.engine import Engine
+
+    states = []
+    for dev in (device, "cpu"):
+        eng = Engine(envpool_tpu_torch.make_spec(task, num_envs=n, seed=SEED, device=dev).env)
+        ps, _ = eng.reset(eng.init(), torch.ones(n, dtype=torch.bool, device=dev))
+        states.append([ps.env_state[k].cpu() for k in ("qpos", "qvel")])
+    _check(all(torch.equal(a, b) for a, b in zip(*states)),
+           f"{task}'s resets differ between the card and the CPU")
+    print(f"{task}: {n} resets from seed {SEED} on the card and on the CPU give the "
+          f"same states bit for bit")
+
+
+def phase_physics(device: str, card: str, task: str, n: int, episode: int,
+                  tol: float, rollout_steps: int) -> None:
+    """CartPole-v1 or a physics task at ``n`` envs through every entry
+    point, card vs CPU, a profile, the batched SPD solve at the model's
+    ``nv`` and a functional rollout; none of it may launch K1 or K2."""
+    import envpool_tpu_torch
+    from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+
+    t0 = time.perf_counter()
+    machine_frame.launches = 0
+    fused_pool_resize.launches = 0
+    seen = phase_float_adapters(device, task, n, episode, dm_episode=_is_dmc(task))
+    _check(task != "CartPole-v1" or seen["terminated"] > 0, "no CartPole termination")
+    _check(task not in ("HalfCheetah-v4", "CheetahRun-v1")
+           or (seen["terminated"], seen["truncated"]) == (0, n),
+           f"{task} ends its episodes by truncation alone")
+    if task == "CheetahRun-v1":
+        phase_bank_reset(device, task, n)
+    vs = phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3, tol=tol,
+                                 spread=_spread(task))
+    check_shares(task, vs)
+    if task != "CartPole-v1":
+        check_f64_parity(f"{task} state", vs["card"], vs["cpu"], tol)
+        check_f64_parity(f"{task} obs", vs["card_obs"], vs["cpu_obs"], tol)
+    prof = phase_profile(device, task, n, 4, warmup=2)
+    if task != "CartPole-v1":
+        nv = envpool_tpu_torch.make_spec(task, device="cpu").env.model.nv
+        phase_spd_solve(device, n, nv)
+    task_steps, _ = phase_throughput(device, task, n, rollout_steps)
+    _check(fused_pool_resize.launches == machine_frame.launches == 0,
+           f"{task} launched K1 or K2")
+    print(
+        f"{task} at {n} envs on {card}: functional rollout of {rollout_steps} "
+        f"steps {task_steps:,.0f} env-steps/s; engine step {prof['launches']:.0f} "
+        f"kernel launches, {prof['device_ms']:.3f} device ms, idle share "
+        f"{prof['idle']:.3f}; K1 and K2 launched 0 times "
+        f"({time.perf_counter() - t0:.1f} s)"
+    )
+
+
+def phase_short_checks(device: str, family: str, tasks: list[str],
+                       share_warmup: bool = False) -> None:
+    """A short card-vs-CPU check of each id of a physics family: 3 steps
+    after 30 warm-up steps, at ``N_SHORT`` envs (``N_SHORT_FREE`` for the
+    Gym-MuJoCo ids with a free base), with ``share_warmup`` one warm-up
+    for ids that step alike (:func:`phase_float_card_vs_cpu`); none may
+    launch K1 or K2."""
+    import torch
+
+    from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+
+    t0 = time.perf_counter()
+    machine_frame.launches = 0
+    fused_pool_resize.launches = 0
+    checks = []
+    warm = {} if share_warmup else None
+    for task in tasks:
+        n = N_SHORT_FREE if task.split("-")[0] in FREE_BASE else N_SHORT
+        t_task = time.perf_counter()
+        checks.append(phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3,
+                                              tol=PHYSICS_TOL, spread=_spread(task),
+                                              warm=warm))
+        check_shares(task, checks[-1])
+        print(f"  ({task}: {time.perf_counter() - t_task:.1f} s)")
+    for what in ("", "_obs"):
+        check_f64_parity(f"the {len(tasks)} short {family} checks, {what[1:] or 'state'}",
+                         *(torch.cat([v[k + what] for v in checks]) for k in ("card", "cpu")),
+                         PHYSICS_TOL)
+    _check(fused_pool_resize.launches == machine_frame.launches == 0,
+           f"a {family} id launched K1 or K2")
+    print(f"short card-vs-CPU checks of {len(tasks)} {family} ids passed; K1 and K2 "
+          f"launched 0 times ({time.perf_counter() - t0:.1f} s)")
+
+
+def _is_dmc(task: str) -> bool:
     from envpool_tpu_torch.core.registry import registry
 
+    return registry.specs[task][0].endswith(".mujoco_dmc")
+
+
+def _spread(task: str) -> bool:
+    if _is_dmc(task):
+        return task in DMC_SPREAD
+    return task.split("-")[0] in SPREAD
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import envpool_tpu_torch  # (fails outside the repository)
+    from envpool_tpu_torch.core.registry import registry
+    from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+
+    t_start = time.perf_counter()
+    device = "cuda"
+    kind = torch.cuda.get_device_name(0)
+    from envpool_tpu_torch.tools.k2_probe import smi
+
+    card = smi("name,power.limit")
+    print(f"device: {kind}")
+    print(card)
+    print(host_cpu())
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.allow_tf32 = False
+    dmc_short = [t for t, (path, _, _) in registry.specs.items()
+                 if path.endswith(".mujoco_dmc") and t != "CheetahRun-v1"]
+
+    # Build both kernels at once (one nvcc each).
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(k.build) for k in (fused_pool_resize, machine_frame)]
+        k1_build, k2_build = (b.result() for b in builds)
+    print(f"K1 build: {k1_build:.1f} s; K2 build: {k2_build:.1f} s (in parallel)")
+
+    stats, k1_launches = section_pong(device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] PongLite-v5 and K1 done")
+    k2_stats, k2_launches = section_machine(device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] Machine2600-v0 and K2 done")
+
+    # -- CartPole-v1 and the physics: no Pallas kernel on their path -------
     for task, n, episode, tol, rollout_steps in (
         ("CartPole-v1", N_CARTPOLE, 15, CARTPOLE_TOL, 512),
         ("HalfCheetah-v4", N_CHEETAH, 20, PHYSICS_TOL, 128),
         ("Ant-v4", N_ANT, 10, PHYSICS_TOL, 128),
         ("Humanoid-v4", N_HUMANOID, 10, PHYSICS_TOL, 32),
+        ("CheetahRun-v1", N_DMC, 10, PHYSICS_TOL, 128),
     ):
-        machine_frame.launches = 0
-        fused_pool_resize.launches = 0
-        seen = phase_float_adapters(device, task, n, episode)
-        _check(task != "CartPole-v1" or seen["terminated"] > 0,
-               "no CartPole termination")
-        _check(task != "HalfCheetah-v4" or (seen["terminated"], seen["truncated"]) == (0, n),
-               "HalfCheetah ends its episodes by truncation alone")
-        vs = phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3, tol=tol,
-                                     spread=task.split("-")[0] in SPREAD)
-        check_shares(task, vs)
-        if task != "CartPole-v1":
-            check_f64_parity(f"{task} state", vs["card"], vs["cpu"], tol)
-            check_f64_parity(f"{task} obs", vs["card_obs"], vs["cpu_obs"], tol)
-        prof = phase_profile(device, task, n, 4, warmup=2)
-        if task != "CartPole-v1":
-            nv = envpool_tpu_torch.make_spec(task, device="cpu").env.model.nv
-            phase_spd_solve(device, n, nv)
-        task_steps, _ = phase_throughput(device, task, n, rollout_steps)
-        _check(fused_pool_resize.launches == machine_frame.launches == 0,
-               f"{task} launched K1 or K2")
-        print(
-            f"{task} at {n} envs on {card}: functional rollout of {rollout_steps} "
-            f"steps {task_steps:,.0f} env-steps/s; engine step {prof['launches']:.0f} "
-            f"kernel launches, {prof['device_ms']:.3f} device ms, idle share "
-            f"{prof['idle']:.3f}; K1 and K2 launched 0 times"
-        )
+        phase_physics(device, card, task, n, episode, tol, rollout_steps)
 
-    # -- every other new Gym-MuJoCo id: a short card-vs-CPU check ----------
-    short = [t for t, (path, _, _) in registry.specs.items()
-             if path.endswith(".mujoco_gym") and not t.startswith("HalfCheetah")
-             and t not in ("Ant-v4", "Humanoid-v4")]
-    machine_frame.launches = 0
-    fused_pool_resize.launches = 0
-    checks = []
-    for task in short:
-        family = task.split("-")[0]
-        n = N_SHORT_FREE if family in FREE_BASE else N_SHORT
-        checks.append(phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3,
-                                              tol=PHYSICS_TOL, spread=family in SPREAD))
-        check_shares(task, checks[-1])
-    for what in ("", "_obs"):
-        check_f64_parity(f"the {len(short)} short checks, {what[1:] or 'state'}",
-                         *(torch.cat([v[k + what] for v in checks]) for k in ("card", "cpu")),
-                         PHYSICS_TOL)
-    _check(fused_pool_resize.launches == machine_frame.launches == 0,
-           "a Gym-MuJoCo id launched K1 or K2")
-    print(f"short card-vs-CPU checks of {len(short)} Gym-MuJoCo ids at "
-          f"{N_SHORT} envs ({N_SHORT_FREE} with a free base) passed; K1 and K2 "
-          "launched 0 times")
+    # -- every other physics id: a short card-vs-CPU check ----------------
+    phase_short_checks(device, "Gym-MuJoCo", [
+        t for t, (path, _, _) in registry.specs.items()
+        if path.endswith(".mujoco_gym") and not t.startswith("HalfCheetah")
+        and t not in ("Ant-v4", "Humanoid-v4")])
+    phase_short_checks(device, "dm_control", dmc_short, share_warmup=True)
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -1,5 +1,7 @@
-"""Import all env family registrations of the port."""
+"""Import all env family registrations of the port (in the JAX package's
+order, so that ``list_all_envs`` lists the ids as it does)."""
 
 import envpool_tpu_torch.envs.atari.registration  # noqa: F401
 import envpool_tpu_torch.envs.classic_control.registration  # noqa: F401
+import envpool_tpu_torch.envs.mujoco_dmc.registration  # noqa: F401
 import envpool_tpu_torch.envs.mujoco_gym.registration  # noqa: F401

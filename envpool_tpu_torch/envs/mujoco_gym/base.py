@@ -3,7 +3,8 @@
 Counterpart of ``envpool_tpu/envs/mujoco_gym/base.py`` (reference
 ``envpool/mujoco/gym/mujoco_env.h:45-267``).  The model's constants come
 from ``physics.model.load_model`` (a committed data file for the default
-XMLs), and every step runs ``physics.dynamics.step`` over ``[N, ...]``
+XMLs; another model's ``xml_file`` is an ``.npz`` that
+``tools/export_models.py --xml`` writes), and every step runs ``physics.dynamics.step`` over ``[N, ...]``
 tensors.
 
 The config is the JAX env's: ``frame_skip``, ``xml_file``,
@@ -21,14 +22,14 @@ import numpy as np
 import torch
 
 from ...core import rng
-from ...core.env import EnvOut, TorchEnv
+from ...core.env import EnvOut
 from ...core.specs import ArraySpec
 from ...physics.dynamics import ContactParams, check_supported, full_fp32
-from ...physics.dynamics import step as phys_step
 from ...physics.model import load_model
+from ..physics_env import PhysicsEnv
 
 
-class MujocoGymEnv(TorchEnv):
+class MujocoGymEnv(PhysicsEnv):
     """Base for Gym-style locomotion tasks."""
 
     XML = ""
@@ -123,14 +124,6 @@ class MujocoGymEnv(TorchEnv):
         """-> (reward [N], terminated [N], info dict of [N] tensors)."""
         raise NotImplementedError
 
-    def termination_margin(self, state):
-        """``[N]`` distance of each state to the bound on which the task
-        terminates, where :meth:`reward_done` compares a quantity computed
-        from the state (two devices may round it to either side).  Infinite
-        where it compares the state's own coordinates, which read the same
-        everywhere, or never terminates."""
-        return state["qpos"].new_full((state["qpos"].shape[0],), float("inf"))
-
     # -- TorchEnv contract -------------------------------------------------
 
     def state_spec(self):
@@ -169,9 +162,12 @@ class MujocoGymEnv(TorchEnv):
             }
         return {"action": ArraySpec(np.float32, (self.model.nu,), low, high)}
 
+    def obs_fields(self, state):
+        return {"obs": self.observe(state["qpos"], state["qvel"])}
+
     def _obs_dict(self, st, info):
         out = {
-            "obs": self.observe(st["qpos"], st["qvel"]),
+            **self.obs_fields(st),
             "info:qpos0": st["qpos0"],
             "info:qvel0": st["qvel0"],
         }
@@ -193,10 +189,7 @@ class MujocoGymEnv(TorchEnv):
         action = action.reshape(-1, self.model.nu).to(torch.float32)
         qpos, qvel = state["qpos"], state["qvel"]
         with full_fp32():
-            new_qpos, new_qvel = phys_step(
-                self.model, qpos, qvel, action, self.substeps, self.contact,
-                self.frame_skip,
-            )
+            new_qpos, new_qvel = self.physics_step(state, action)
             before = {"qpos": qpos, "qvel": qvel}
             after = {"qpos": new_qpos, "qvel": new_qvel}
             reward, terminated, info = self.reward_done(before, after, action)

@@ -4,14 +4,12 @@ contacts against the ground plane, fluid drag, fixed tendons, Euler with
 implicit damping and RK4, over ``[N, ...]`` tensors."""
 
 from .dynamics import ContactParams, bias_forces, mass_matrix, step
-from .model import PhysModel, from_mj_model, from_mjcf, load_model
+from .model import PhysModel, load_model
 
 __all__ = [
     "ContactParams",
     "PhysModel",
     "bias_forces",
-    "from_mj_model",
-    "from_mjcf",
     "load_model",
     "mass_matrix",
     "step",

@@ -53,12 +53,18 @@ def test_spec_surface_matches_jax(kwargs):
 
 def test_registry_surface():
     from envpool_tpu.core.registry import registry
+    from envpool_tpu_torch.core.registry import registry as torch_registry
 
+    # dm_control: the ids whose physics the port has
+    # (tests/test_torch_mujoco_dmc.py::test_ported_ids names them).
+    dmc = {t for t, (path, _, _) in torch_registry.specs.items()
+           if path.endswith(".mujoco_dmc")}
     ported = [
         t for t in envpool_tpu.list_all_envs()
         if t == TASK
         or t.startswith("Machine2600")
         or registry.specs[t][0].endswith((".classic_control", ".mujoco_gym"))
+        or t in dmc
     ]
     assert envpool_tpu_torch.list_all_envs() == ported
     with pytest.raises(ValueError):

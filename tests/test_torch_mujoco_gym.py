@@ -144,12 +144,19 @@ def test_pools_run_and_unported_options_raise(tmp_path):
     assert tuple(obs.shape) == (n, 17)
     with pytest.raises(NotImplementedError, match="contact_solver"):
         envpool_tpu_torch.make_spec(TASK, device="cpu", contact_solver="mujoco")
+    with pytest.raises(ValueError, match="tools.export_models --xml"):
+        envpool_tpu_torch.make_spec(TASK, device="cpu", xml_file="model.xml")
     pytest.importorskip("mujoco")
+    from envpool_tpu_torch.tools import export_models
+
     for what, xml in _UNPORTED_XML.items():
         path = tmp_path / "model.xml"
         path.write_text(xml)
+        npz = tmp_path / "model.npz"
         with pytest.raises(NotImplementedError, match=what):
-            envpool_tpu_torch.make_spec(TASK, device="cpu", xml_file=str(path))
+            # the extractor or the env, whichever meets the feature first
+            export_models.main(["--xml", str(path), "--out", str(npz)])
+            envpool_tpu_torch.make_spec(TASK, device="cpu", xml_file=str(npz))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             envpool_tpu_torch.make(TASK, env_type="gymnasium")

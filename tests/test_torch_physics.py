@@ -48,6 +48,7 @@ from envpool_tpu_torch.physics import kinematics as tkin
 from envpool_tpu_torch.physics import linalg as tlinalg
 from envpool_tpu_torch.physics import model as tmodel
 from envpool_tpu_torch.physics.structure import dof_structure
+from envpool_tpu_torch.tools import export_models
 
 KIN_TOL = 2e-5
 STEP_TOL = 1e-4
@@ -108,13 +109,20 @@ def states(models, jax_steps):
 @pytest.mark.parametrize("xml", sorted(tmodel.ASSETS))
 def test_model_data_matches_from_mjcf(xml, reference):
     """Each committed model equals what ``from_mjcf`` extracts from
-    gymnasium's XML, field by field and exactly."""
+    gymnasium's XML, or ``from_mj_model`` from dm_control's model (as the
+    JAX package's dm_control envs load it), field by field and exactly
+    (the port's extractors are in ``tools/export_models.py``)."""
     pytest.importorskip("mujoco")
-    gymnasium = pytest.importorskip("gymnasium")
-    path = os.path.join(
-        os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", xml
-    )
-    want = tmodel.from_mjcf(path) if reference == "port" else _load_model(xml)
+    if xml.startswith("dmc:"):
+        pytest.importorskip("dm_control")
+        m = export_models.dmc_mj_model(xml)
+        want = (export_models if reference == "port" else jmodel).from_mj_model(m)
+    else:
+        gymnasium = pytest.importorskip("gymnasium")
+        path = os.path.join(
+            os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", xml
+        )
+        want = export_models.from_mjcf(path) if reference == "port" else _load_model(xml)
     got = tmodel.load_model(xml)
     for f in dataclasses.fields(tmodel.PhysModel):
         a, b = getattr(got, f.name), getattr(want, f.name)
@@ -139,7 +147,7 @@ def test_model_loads_without_mujoco(monkeypatch):
         assert len(m.ten_fixed) == 2
         for xml in tmodel.ASSETS:
             assert tmodel.load_model(xml).nq > 0
-        with pytest.raises(ImportError, match="needs the `mujoco` package"):
+        with pytest.raises(ValueError, match="tools.export_models --xml"):
             tmodel.load_model("/nonexistent/hopper.xml")
     finally:
         tmodel.load_model.cache_clear()
@@ -335,7 +343,7 @@ def test_unported_features_raise(models, states, tmp_path):
         tdyn.step(string, q, qd, u)
     pytest.importorskip("mujoco")
     with pytest.raises(NotImplementedError, match="ball-joint limits"):
-        tmodel.from_mjcf(_ball_xml(tmp_path, limited=True))
+        export_models.from_mjcf(_ball_xml(tmp_path, limited=True))
 
 
 # -- free and ball joints, fluid drag, fixed tendons ---------------------------
@@ -372,7 +380,7 @@ def free_cases(tmp_path_factory):
         if name == "ball":
             pytest.importorskip("mujoco")
             xml = _ball_xml(tmp_path_factory.mktemp("ball"))
-            jm, tm = jmodel.from_mjcf(xml), tmodel.from_mjcf(xml)
+            jm, tm = jmodel.from_mjcf(xml), export_models.from_mjcf(xml)
             q = jm.qpos0 + r.uniform(-0.3, 0.3, (N, jm.nq))
             cases[name] = _Case(jm, tm, 5, q, r.normal(0, 2, (N, jm.nv)), 0.0, 0)
             return cases[name]
