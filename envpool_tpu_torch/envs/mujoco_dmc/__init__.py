@@ -1,7 +1,7 @@
 """dm_control suite env family over the port's batched physics.
 
-Counterpart of ``envpool_tpu/envs/mujoco_dmc``: the tasks whose models the
-port's physics runs (``registration.py`` lists what is left out).
+Counterpart of ``envpool_tpu/envs/mujoco_dmc``: every domain but dog
+(``registration.py``).
 """
 
 from .base import DmcEnv
@@ -12,21 +12,38 @@ from .tasks import (
     DmcReacherEnv,
     HopperEnv,
     PendulumEnv,
+    PointMassEnv,
     SwimmerEnv,
     WalkerEnv,
 )
-from .tasks2 import DmcHumanoidEnv, HumanoidCMUEnv
+from .tasks2 import (
+    BallInCupEnv,
+    DmcHumanoidEnv,
+    FingerEnv,
+    FishEnv,
+    HumanoidCMUEnv,
+    LqrEnv,
+)
+from .tasks3 import ManipulatorEnv, QuadrupedEnv, StackerEnv
 
 __all__ = [
+    "BallInCupEnv",
     "CartpoleEnv",
     "CheetahEnv",
     "DmcAcrobotEnv",
     "DmcEnv",
     "DmcHumanoidEnv",
     "DmcReacherEnv",
+    "FingerEnv",
+    "FishEnv",
     "HopperEnv",
     "HumanoidCMUEnv",
+    "LqrEnv",
+    "ManipulatorEnv",
     "PendulumEnv",
+    "PointMassEnv",
+    "QuadrupedEnv",
+    "StackerEnv",
     "SwimmerEnv",
     "WalkerEnv",
 ]

@@ -17,6 +17,7 @@ tasks map their threefry draws.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -34,7 +35,7 @@ from ...physics.dynamics import (
     mass_matrix,
 )
 from ...physics.kinematics import _mv, fk, model_tensors
-from ...physics.model import HINGE, SLIDE, load_model
+from ...physics.model import HINGE, SLIDE, load_constants, load_model
 from ..physics_env import PhysicsEnv
 
 # A model whose joint-space inertia at ``qpos0`` is conditioned worse than
@@ -134,6 +135,27 @@ class DmcEnv(PhysicsEnv):
 
     def body_index(self, name: str) -> int:
         return self.model.body_names.index(name)
+
+    @functools.cached_property
+    def consts(self) -> dict[str, np.ndarray]:
+        """The task constants committed beside the model (``load_constants``;
+        joint and geom names, site sizes, ... where the task reads them)."""
+        return load_constants(self.model_name())
+
+    def joint_index(self, name: str) -> int:
+        return list(self.consts["joint_names"]).index(name)
+
+    def geom_index(self, name: str) -> int:
+        return list(self.consts["geom_names"]).index(name)
+
+    def site_index(self, name: str) -> int:
+        return self.model.site_names.index(name)
+
+    def _points(self, qpos, body: int, local) -> torch.Tensor:
+        """``[N, 3]`` world position of the point ``local`` (body frame)."""
+        Rs, ps = self._fk(qpos)
+        local = torch.as_tensor(np.float32(local), device=qpos.device).to(qpos.dtype)
+        return ps[:, body] + _mv(Rs[:, body], local)
 
     def _fk(self, qpos):
         """``(Rs [N, nb, 3, 3], ps [N, nb, 3])`` of the last ``qpos`` asked
@@ -240,10 +262,10 @@ class DmcEnv(PhysicsEnv):
 
     def step_env(self, state, action, draws):
         action = action.reshape(-1, self.model.nu).to(torch.float32)
-        extras = state["extras"]
         with full_fp32():
             qpos, qvel = self.physics_step(state, action)
-            st = {"qpos": qpos, "qvel": qvel, "extras": extras}
+            st = self.next_state(state, action, qpos, qvel)
+            extras = st["extras"]
             obs = self.obs_fields(st)
             reward = self.reward_dmc(qpos, qvel, action, extras).to(torch.float32)
             term = self.terminated_dmc(qpos, qvel, extras)

@@ -1,13 +1,11 @@
 """dm_control suite registration: the ids of
-``envpool_tpu/envs/mujoco_dmc/registration.py`` whose physics the port has
-(reference ``envpool/mujoco/dmc/registration.py``), each with
-``max_episode_steps=1000``.
+``envpool_tpu/envs/mujoco_dmc/registration.py`` (reference
+``envpool/mujoco/dmc/registration.py``) in its order, each with
+``max_episode_steps=1000``: 46 of its 51.
 
-Left out until the port's physics has what their models need
-(``physics.dynamics.check_supported``): point_mass, manipulator, stacker
-and dog (tendon transmissions), fish and quadruped (also affine-bias
-actuators), ball_in_cup (spatial tendons), lqr (spatial tendons) and
-finger (body-body contacts).
+Left out: dog (DogStand, DogWalk, DogTrot, DogRun, DogFetch), whose task
+is not ported yet; its physics is (tendon transmissions, affine-bias
+servos).  ``make`` of a Dog id gives the registry's unknown-id error.
 """
 
 from ...core.registry import register
@@ -30,10 +28,17 @@ _TASKS = [
     ("HopperHop-v1", "HopperEnv", "hop", {}),
     ("ReacherEasy-v1", "DmcReacherEnv", "easy", {}),
     ("ReacherHard-v1", "DmcReacherEnv", "hard", {}),
+    ("PointMassEasy-v1", "PointMassEnv", "easy", {}),
+    ("PointMassHard-v1", "PointMassEnv", "hard", {}),
     ("CartpoleTwoPoles-v1", "CartpoleEnv", "two_poles", {"n_poles": 2}),
     ("CartpoleThreePoles-v1", "CartpoleEnv", "three_poles", {"n_poles": 3}),
     ("SwimmerSwimmer6-v1", "SwimmerEnv", "swimmer6", {"n_links": 6}),
     ("SwimmerSwimmer15-v1", "SwimmerEnv", "swimmer15", {"n_links": 15}),
+    ("BallInCupCatch-v1", "BallInCupEnv", "catch", {}),
+    ("FishUpright-v1", "FishEnv", "upright", {}),
+    ("FishSwim-v1", "FishEnv", "swim", {}),
+    ("LqrLqr21-v1", "LqrEnv", "lqr_2_1", {}),
+    ("LqrLqr62-v1", "LqrEnv", "lqr_6_2", {}),
     ("HumanoidStand-v1", "DmcHumanoidEnv", "stand", {}),
     ("HumanoidWalk-v1", "DmcHumanoidEnv", "walk", {}),
     ("HumanoidRun-v1", "DmcHumanoidEnv", "run", {}),
@@ -41,6 +46,19 @@ _TASKS = [
     ("HumanoidCMUStand-v1", "HumanoidCMUEnv", "stand", {}),
     ("HumanoidCMUWalk-v1", "HumanoidCMUEnv", "walk", {}),
     ("HumanoidCMURun-v1", "HumanoidCMUEnv", "run", {}),
+    ("FingerSpin-v1", "FingerEnv", "spin", {}),
+    ("FingerTurnEasy-v1", "FingerEnv", "turn_easy", {}),
+    ("FingerTurnHard-v1", "FingerEnv", "turn_hard", {}),
+    ("QuadrupedWalk-v1", "QuadrupedEnv", "walk", {}),
+    ("QuadrupedRun-v1", "QuadrupedEnv", "run", {}),
+    ("QuadrupedEscape-v1", "QuadrupedEnv", "escape", {}),
+    ("QuadrupedFetch-v1", "QuadrupedEnv", "fetch", {}),
+    ("ManipulatorBringBall-v1", "ManipulatorEnv", "bring_ball", {}),
+    ("ManipulatorBringPeg-v1", "ManipulatorEnv", "bring_peg", {}),
+    ("ManipulatorInsertBall-v1", "ManipulatorEnv", "insert_ball", {}),
+    ("ManipulatorInsertPeg-v1", "ManipulatorEnv", "insert_peg", {}),
+    ("StackerStack2-v1", "StackerEnv", "stack_2", {}),
+    ("StackerStack4-v1", "StackerEnv", "stack_4", {}),
 ]
 
 for _task_id, _env_cls, _task_name, _extra in _TASKS:

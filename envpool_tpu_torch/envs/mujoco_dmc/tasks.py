@@ -1,10 +1,8 @@
 """dm_control suite tasks, batched: cheetah, pendulum, cartpole, walker,
-hopper, reacher, acrobot and swimmer.
+hopper, reacher, acrobot, point_mass and swimmer.
 
 Counterpart of ``envpool_tpu/envs/mujoco_dmc/tasks.py`` (its rewards and
-observations, written for ``[N, ...]`` tensors).  Point mass is left out:
-its model drives its joints through tendon transmissions, which the port's
-physics does not have (``physics.dynamics.check_supported``).
+observations, written for ``[N, ...]`` tensors).
 """
 
 from __future__ import annotations
@@ -355,6 +353,72 @@ class DmcAcrobotEnv(DmcEnv):
         radius = 0.1
         margin = 0.0 if self.task.endswith("sparse") else 1.0
         return rewards.tolerance(self._to_target(qpos), bounds=(0, radius), margin=margin)
+
+
+class PointMassEnv(DmcEnv):
+    """point_mass:{easy,hard}: two slide joints driven through tendon
+    transmissions.
+
+    ``hard`` randomizes the actuation per episode, as the JAX env does:
+    each control channel drives a random unit direction of the two joints
+    (dm_control sets the tendons' ``wrap_prm`` to two random unit vectors
+    with |cos| <= 0.9); the 2x2 matrix of the directions lives in
+    ``extras`` and remaps the action.  JAX draws the second direction in a
+    rejection loop; here each env draws ``CANDIDATES`` candidates and takes
+    the first with |cos| <= 0.9 to the first direction.  A candidate fails
+    with probability ~0.287, so all of them fail with ~2e-9; then the last
+    one is taken, whatever its angle.
+    """
+
+    DOMAIN = "point_mass"
+    _TARGET_SIZE = 0.015
+    CANDIDATES = 16
+
+    def _extras_spec(self):
+        return {"gain": (2, 2)} if self.task == "hard" else {}
+
+    def reset_draws(self, sub):
+        """``joints`` of :meth:`randomize_joints`; for ``hard`` also
+        ``dir1`` ``[N, 2]`` and ``dir2`` ``[N, CANDIDATES, 2]`` standard
+        normal (directions before normalisation)."""
+        draws = {"joints": self.randomize_joints(sub)}
+        if self.task == "hard":
+            nj = len(self._rand_joints)
+            draws["dir1"] = rng.normal(sub, nj, 2)
+            draws["dir2"] = rng.normal(sub, nj + 4, 2 * self.CANDIDATES).view(-1, self.CANDIDATES, 2)
+        return draws
+
+    def init_state(self, draws):
+        qpos, qvel, _ = super().init_state(draws)
+        extras = {}
+        if self.task == "hard":
+            dir1 = draws["dir1"] / torch.linalg.vector_norm(draws["dir1"], dim=-1, keepdim=True)
+            cands = draws["dir2"] / torch.linalg.vector_norm(draws["dir2"], dim=-1, keepdim=True)
+            ok = (cands * dir1[:, None]).sum(-1).abs() <= 0.9
+            ok[:, -1] = True  # all rejected: the last candidate
+            first = ok.to(torch.int8).argmax(1)
+            dir2 = cands[torch.arange(len(first), device=first.device), first]
+            # Columns are the actuation directions: ctrl = gain @ action.
+            extras["gain"] = torch.stack([dir1, dir2], 2)
+        return qpos, qvel, extras
+
+    def transform_action(self, action, extras):
+        if self.task == "hard":
+            return _mv(extras["gain"], action)
+        return action
+
+    def observe_dmc(self, qpos, qvel, extras):
+        return {"position": qpos, "velocity": qvel}
+
+    def reward_dmc(self, qpos, qvel, action, extras):
+        # The target geom sits at the origin (point_mass.xml).
+        mass_pos = self.xpos(qpos)[:, self.body_index("pointmass"), :2]
+        near = rewards.tolerance(
+            torch.linalg.vector_norm(mass_pos, dim=1), (0, self._TARGET_SIZE),
+            margin=self._TARGET_SIZE,
+        )
+        control = torch.mean(_quadratic_control(action), 1)
+        return near * (control + 4) / 5
 
 
 class SwimmerEnv(DmcEnv):

@@ -47,6 +47,15 @@ class PhysicsEnv(TorchEnv):
         )
         return qpos.to(q.dtype), qvel.to(q.dtype)
 
+    def next_state(self, state, action: torch.Tensor, qpos: torch.Tensor,
+                   qvel: torch.Tensor):
+        """The env state after one env step of ``state`` under ``action``
+        whose physics ended in ``(qpos, qvel)``: ``state`` with the new
+        coordinates, unless the task carries more state across a step
+        (quadruped's actuator activations)."""
+        del action
+        return dict(state, qpos=qpos, qvel=qvel)
+
     def obs_fields(self, state) -> dict[str, torch.Tensor]:
         """The observation fields of ``state``, keyed as in the timestep."""
         raise NotImplementedError

@@ -8,13 +8,16 @@ One tree pass (``kinematics.fk_dof``) emits every dof's world-frame screw;
 with the static masks of ``structure.dof_structure`` the Jacobians, the
 velocities, the bias accelerations (MuJoCo's RNE terms, by the product
 rule through the screws' time derivatives), the mass matrix, the penalty
-contacts against the ground plane, MuJoCo's inertia-box fluid drag and the
-fixed tendons' springs and dampers are closed-form batched products over
-``[N, ...]`` tensors.  Euler with implicit damping and RK4 integrate.
+contacts against the ground plane, MuJoCo's inertia-box fluid drag, the
+fixed tendons' springs and dampers, the actuators (joint and fixed-tendon
+transmissions, affine-bias servos), the limit penalty of the limited
+spatial tendons and the body-body contact pairs are closed-form batched
+products over ``[N, ...]`` tensors: the servos, tendons and pairs are
+gathered and reduced over their count, with no Python loop over them.
+Euler with implicit damping and RK4 integrate.
 
-Left out, each raising ``NotImplementedError`` (:func:`check_supported`):
-spatial tendons, affine-bias actuators, tendon transmissions, body-body
-contact pairs and the constraint solver (``contact_solver="mujoco"``).
+Left out, raising ``NotImplementedError`` (:func:`check_supported`): the
+constraint solver (``contact_solver="mujoco"``).
 The JAX package's lane-parallel scalar backend (``physics/scalar.py``)
 and its ``custom_vmap`` dispatch are a TPU layout and are not ported.
 
@@ -42,6 +45,7 @@ __all__ = [
     "forward",
     "full_fp32",
     "mass_matrix",
+    "pair_forces",
     "site_positions",
     "step",
     "switch_sides",
@@ -59,7 +63,7 @@ class ContactParams(NamedTuple):
     vs: float = 0.05     # friction velocity smoothing (m/s)
     ten_kp: float = 2.0e3  # spatial-tendon limit penalty stiffness
     ten_kd: float = 2.0e1  # spatial-tendon limit penalty damping
-    pairs: bool = False  # body-body contacts (not ported)
+    pairs: bool = False  # body-body contacts (model.pair_*)
     pair_kp: float = 1.0e4
     pair_kd: float = 1.0e2
     solver: str = "penalty"  # "mujoco" (the constraint solver) is not ported
@@ -67,21 +71,13 @@ class ContactParams(NamedTuple):
 
 
 def check_supported(model: PhysModel, contact: ContactParams) -> None:
-    """Raise ``NotImplementedError`` for what the port's dynamics lack."""
-    missing = []
-    if model.ten_spatial_sites is not None and len(model.ten_spatial_sites):
-        missing.append("spatial tendons")
-    if model.act_biastype is not None and model.act_biastype.any():
-        missing.append("affine-bias actuators")
-    if model.act_trntype is not None and model.act_trntype.any():
-        missing.append("tendon transmissions")
-    if contact.pairs:
-        missing.append("body-body contact pairs")
+    """Raise ``NotImplementedError`` for what the port's dynamics lack: the
+    constraint solver."""
+    del model
     if contact.solver != "penalty":
-        missing.append(f"contact_solver={contact.solver!r}")
-    if missing:
         raise NotImplementedError(
-            "not ported to envpool_tpu_torch's physics: " + ", ".join(missing)
+            "not ported to envpool_tpu_torch's physics: "
+            f"contact_solver={contact.solver!r}"
         )
 
 
@@ -136,16 +132,96 @@ def contact_depths(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
     return mt.con_radius - _contact_points(mt, *fk(model, q))[..., 2]
 
 
-def switch_sides(model: PhysModel, q: torch.Tensor) -> torch.Tensor:
+def _points_in_bodies(Rs, ps, bodies, local):
+    """World positions ``[N, K, 3]`` of points fixed at ``local`` ``[K, 3]``
+    in the frames of ``bodies`` ``[K]``."""
+    return ps[:, bodies] + _mv(Rs[:, bodies], local)
+
+
+def _tendon_geometry(mt, Rs, ps):
+    """The limited spatial tendons (site to site): both ends ``[N, 2T, 3]``
+    (ends a, then ends b), the unit direction from b to a ``[N, T, 3]``,
+    and how far each length lies above and below its range ``[N, T]``."""
+    x = _points_in_bodies(Rs, ps, mt.ten_body, mt.ten_local)
+    n_ten = mt.ten_lo.shape[0]
+    diff = x[:, :n_ten] - x[:, n_ten:]
+    length = torch.linalg.vector_norm(diff, dim=-1) + 1e-9
+    over = torch.clamp_min(length - mt.ten_hi, 0.0)
+    under = torch.clamp_min(mt.ten_lo - length, 0.0)
+    return x, diff / length[..., None], over, under
+
+
+def _seg_closest(p1, q1, p2, q2):
+    """Closest points between the segments ``[p1, q1]`` and ``[p2, q2]``
+    (Ericson 5.1.9; ``[..., 3]`` each), and the three branch tests whose
+    sides pick the formula: ``(denom > 1e-12, t < 0, t > 1)``."""
+
+    def dot(u, v):
+        return (u * v).sum(-1)
+
+    d1 = q1 - p1
+    d2 = q2 - p2
+    r = p1 - p2
+    a = dot(d1, d1) + 1e-12
+    e = dot(d2, d2) + 1e-12
+    f = dot(d2, r)
+    c = dot(d1, r)
+    b = dot(d1, d2)
+    denom = a * e - b * b
+    general = denom > 1e-12
+    s = torch.where(general, torch.clamp((b * f - c * e) / denom, 0.0, 1.0), 0.0)
+    t = (b * s + f) / e
+    below, above = t < 0.0, t > 1.0
+    s = torch.where(
+        below,
+        torch.clamp(-c / a, 0.0, 1.0),
+        torch.where(above, torch.clamp((b - c) / a, 0.0, 1.0), s),
+    )
+    t = torch.clamp(t, 0.0, 1.0)
+    return p1 + s[..., None] * d1, p2 + t[..., None] * d2, (general, below, above)
+
+
+def _pair_geometry(mt, Rs, ps):
+    """The body-body contact pairs (sphere or capsule segments): the
+    closest points ``[N, 2P, 3]`` (on side a, then on side b), the unit
+    normal from b to a ``[N, P, 3]``, the penetration ``[N, P]`` (> 0 in
+    contact) and :func:`_seg_closest`'s branch tests."""
+    n_pair = mt.pair_radius.shape[0]
+    local = torch.cat([mt.pair_seg[:, 0], mt.pair_seg[:, 1]])  # [2P, 2 ends, 3]
+    R, p = Rs[:, mt.pair_body, None], ps[:, mt.pair_body, None]
+    ends = p + (R @ local[..., None]).squeeze(-1)  # [N, 2P, 2, 3]
+    pa, pb, branches = _seg_closest(
+        ends[:, :n_pair, 0], ends[:, :n_pair, 1], ends[:, n_pair:, 0], ends[:, n_pair:, 1]
+    )
+    delta = pa - pb
+    dist = torch.linalg.vector_norm(delta, dim=-1) + 1e-9
+    return torch.cat([pa, pb], 1), delta / dist[..., None], mt.pair_radius - dist, branches
+
+
+def switch_sides(
+    model: PhysModel, q: torch.Tensor, contact: ContactParams = ContactParams()
+) -> torch.Tensor:
     """On which side of every switch of the penalty forces each env lies:
-    ``[N, nc + 2·nj]`` bools over the contacts and the hinge and slide
-    joints: a contact in the ground (depth > 0), a joint below and above
-    its range.  The forces jump where one flips, so two float32 runs of
-    one step that put an env on different sides of a switch in a substep
-    may part by far more than rounding."""
+    ``[N, nc + 2·nj + 2·T + 4·P]`` bools.  In this order: a contact sphere
+    in the ground (depth > 0), a hinge or slide joint below and above its
+    range, a limited spatial tendon above and below its range, and, with
+    ``contact.pairs``, a pair in contact (depth > 0) and the three branch
+    tests of its closest points (:func:`_seg_closest`).  The forces jump
+    where one flips, so two float32 runs of one step that put an env on
+    different sides of a switch in a substep may part by far more than
+    rounding."""
     mt = model_tensors(model, q.device, q.dtype)
+    Rs, ps = fk(model, q)
     qs = q[:, mt.hs_qadr]
-    return torch.cat([contact_depths(model, q) > 0, qs < mt.hs_lo, qs > mt.hs_hi], 1)
+    depth = mt.con_radius - _contact_points(mt, Rs, ps)[..., 2]
+    sides = [depth > 0, qs < mt.hs_lo, qs > mt.hs_hi]
+    if mt.ten_lo.shape[0]:
+        _, _, over, under = _tendon_geometry(mt, Rs, ps)
+        sides += [over > 0, under > 0]
+    if contact.pairs and mt.pair_radius.shape[0]:
+        _, _, pen, branches = _pair_geometry(mt, Rs, ps)
+        sides += [pen > 0, *branches]
+    return torch.cat(sides, 1)
 
 
 class _Kin(NamedTuple):
@@ -347,9 +423,87 @@ def _limit_violation(mt, q):
     )
 
 
-def _actuator_forces(mt, ctrl):
-    """τ = clip(ctrl) through the moment rows (gear · gain per dof)."""
-    return torch.clamp(ctrl, mt.act_lo, mt.act_hi) @ mt.act_moment
+def _actuator_forces(mt, ctrl, q, qd):
+    """τ of the actuators: ``clip(ctrl)`` through the moment rows (gear ·
+    gain per dof, a fixed tendon's coefficients for a tendon
+    transmission), and for the affine-bias servos ``gain·clip(ctrl) +
+    b1·length + b2·velocity`` through their transmission rows, recomputed
+    at every substep and RK4 stage."""
+    c = torch.clamp(ctrl, mt.act_lo, mt.act_hi)
+    tau = c @ mt.act_moment
+    if mt.aff_act.shape[0]:
+        f = (
+            mt.aff_gain * c[:, mt.aff_act]
+            + mt.aff_b1 * (q @ mt.aff_qcoef.T)
+            + mt.aff_b2 * (qd @ mt.aff_dcoef.T)
+        )
+        tau = tau + f @ mt.aff_dcoef
+    return tau
+
+
+def _point_forces_tau(mask_T, k: _Kin, x, F):
+    """Generalized force of world-frame forces ``F`` at material points
+    ``x`` (``[N, K, 3]`` each; point i fixed in the body whose dof mask is
+    ``mask_T[i]``): ``Σ_i mask_T[i, k] (t_k + w_k × (x_i − c_k)) · F_i``,
+    ``[N, nv]``."""
+    jp = k.t[:, :, None] + torch.linalg.cross(
+        k.w[:, :, None], x[:, None] - k.c[:, :, None], dim=-1
+    )  # [N, nv, K, 3]
+    return ((jp * F[:, None]).sum(-1) * mask_T.T).sum(-1)
+
+
+def _spatial_tendon_tau(mt, k: _Kin, tv, wv, wxc, contact: ContactParams):
+    """The limit-range penalty of the limited spatial tendons (ball_in_cup's
+    string), as the JAX step has it: outside its range a tendon pulls its
+    two sites along the string with ``−ten_kp·(over − under) − ten_kd·l̇``
+    (a signed force: past the lower limit it pushes); the tendons'
+    stiffness and damping are not used."""
+    x, u, over, under = _tendon_geometry(mt, k.Rs, k.ps)
+    n_ten = u.shape[1]
+    v, _ = _point_vel(mt.ten_mask_T, tv, wv, wxc, x)
+    ldot = (u * (v[:, :n_ten] - v[:, n_ten:])).sum(-1)
+    active = (over > 0) | (under > 0)
+    f = torch.where(active, -contact.ten_kp * (over - under) - contact.ten_kd * ldot, 0.0)
+    F = f[..., None] * u
+    return _point_forces_tau(mt.ten_mask_T, k, x, torch.cat([F, -F], 1))
+
+
+def _pair_normal(mt, x, n, pen, tv, wv, wxc, contact: ContactParams):
+    """Every pair's normal force ``[N, P]`` (a one-sided spring and damper
+    at the closest points), the relative velocity of side a against side b
+    ``[N, P, 3]`` and its normal component ``[N, P]``."""
+    v, _ = _point_vel(mt.pair_mask_T, tv, wv, wxc, x)
+    n_pair = pen.shape[1]
+    v_rel = v[:, :n_pair] - v[:, n_pair:]
+    vn = (v_rel * n).sum(-1)
+    fn = torch.where(pen > 0, contact.pair_kp * pen - contact.pair_kd * vn, 0.0)
+    return torch.clamp_min(fn, 0.0), v_rel, vn
+
+
+def _pair_contact_tau(mt, k: _Kin, tv, wv, wxc, contact: ContactParams):
+    """The body-body pairs' penalty contacts: the normal force of
+    :func:`_pair_normal` plus smooth Coulomb friction on the tangential
+    relative velocity, at the closest points, on both bodies."""
+    x, n, pen, _ = _pair_geometry(mt, k.Rs, k.ps)
+    fn, v_rel, vn = _pair_normal(mt, x, n, pen, tv, wv, wxc, contact)
+    vt = v_rel - vn[..., None] * n
+    vt_norm = torch.linalg.vector_norm(vt, dim=-1) + 1e-9
+    mu = mt.pair_friction * contact.mu_scale
+    ft = -(mu * fn * torch.tanh(vt_norm / contact.vs))[..., None] * vt / vt_norm[..., None]
+    F = fn[..., None] * n + ft
+    return _point_forces_tau(mt.pair_mask_T, k, x, torch.cat([F, -F], 1))
+
+
+def pair_forces(
+    model: PhysModel, q: torch.Tensor, qd: torch.Tensor, contact: ContactParams
+) -> torch.Tensor:
+    """Every body-body pair's penalty normal force ``[N, P]`` (JAX's
+    ``_pair_fn``; finger's touch observation)."""
+    mt = model_tensors(model, q.device, q.dtype)
+    k = _kin(model, q)
+    tv, wv = qd[..., None] * k.t, qd[..., None] * k.w
+    x, n, pen, _ = _pair_geometry(mt, k.Rs, k.ps)
+    return _pair_normal(mt, x, n, pen, tv, wv, torch.linalg.cross(wv, k.c), contact)[0]
 
 
 def _smooth(model: PhysModel, q, qd, ctrl, contact: ContactParams):
@@ -363,12 +517,11 @@ def _smooth(model: PhysModel, q, qd, ctrl, contact: ContactParams):
     c = _bias_from_accels(mt, a_com, omega, omega_dot, Iw, Jp, Jr)
     tv = qd[..., None] * k.t
     wv = qd[..., None] * k.w
-    v_con, _ = _point_vel(
-        mt.con_mask_T, tv, wv, torch.linalg.cross(wv, k.c), k.centers
-    )
+    wxc = torch.linalg.cross(wv, k.c)
+    v_con, _ = _point_vel(mt.con_mask_T, tv, wv, wxc, k.centers)
     tau_con, d_con = _contact_forces_shared(mt, contact, k.centers, v_con, Jc)
     tau = (
-        _actuator_forces(mt, ctrl)
+        _actuator_forces(mt, ctrl, q, qd)
         + _passive_forces(mt, q, qd)
         + tau_con
         - c
@@ -377,6 +530,11 @@ def _smooth(model: PhysModel, q, qd, ctrl, contact: ContactParams):
     if model.density > 0 or model.viscosity > 0:
         f, t = _fluid_forces(mt, v_com, omega, k.Rs)
         tau = tau + _body_wrench_tau(f, t, Jp, Jr)
+    # Explicit in the Euler step, as in the JAX step (not in D_con).
+    if mt.ten_lo.shape[0]:
+        tau = tau + _spatial_tendon_tau(mt, k, tv, wv, wxc, contact)
+    if contact.pairs and mt.pair_radius.shape[0]:
+        tau = tau + _pair_contact_tau(mt, k, tv, wv, wxc, contact)
     return M, tau, d_con, k
 
 

@@ -110,6 +110,66 @@ def _tendon_tables(model: PhysModel) -> dict[str, np.ndarray]:
     }
 
 
+def _affine_tables(model: PhysModel, s) -> dict[str, np.ndarray]:
+    """The affine-bias servos (``structure.act_affine``) as dense rows:
+    actuator index, gain, ``biasprm[1:3]``, and each servo's transmission
+    coefficients over qpos ``[A, nq]`` and qvel ``[A, nv]``."""
+    rows = s.act_affine
+    qcoef = np.zeros((len(rows), model.nq))
+    dcoef = np.zeros((len(rows), model.nv))
+    for i, (_, _, _, _, triples) in enumerate(rows):
+        for qadr, dadr, coef in triples:
+            qcoef[i, qadr] += coef
+            dcoef[i, dadr] += coef
+    return {
+        "aff_act": np.asarray([r[0] for r in rows], np.int64),
+        "aff_gain": np.asarray([r[1] for r in rows], np.float64),
+        "aff_b1": np.asarray([r[2] for r in rows], np.float64),
+        "aff_b2": np.asarray([r[3] for r in rows], np.float64),
+        "aff_qcoef": qcoef,
+        "aff_dcoef": dcoef,
+    }
+
+
+def _endpoint_tables(bodies, local, body_mask):
+    """Two material points per row (``bodies`` ``[K, 2]``, their offsets in
+    the body frames ``[K, 2, 3]``) as the tables of
+    ``dynamics._point_vel`` / ``dynamics._point_forces_tau``: both ends'
+    bodies ``[2K]`` (ends a, then ends b), offsets ``[2K, 3]`` and the
+    transposed body-mask columns ``[2K, nv]``."""
+    b = np.concatenate([bodies[:, 0], bodies[:, 1]]).astype(np.int64)
+    x = np.concatenate([local[:, 0], local[:, 1]]).reshape(-1, 3)
+    return b, x, body_mask[:, b].T
+
+
+def _tendon_pair_tables(model: PhysModel, body_mask) -> dict[str, np.ndarray]:
+    """The limited spatial tendons (the only ones that exert a force) and
+    the body-body contact pairs, each row's two ends stacked."""
+
+    def field(name, *shape, dtype=np.float64):
+        v = getattr(model, name)
+        return np.zeros((0, *shape), dtype) if v is None else np.asarray(v, dtype).reshape(-1, *shape)
+
+    limited = np.flatnonzero(field("ten_spatial_limited", dtype=bool))
+    ends = field("ten_spatial_sites", 2, dtype=np.int64)[limited]
+    site_body = np.asarray(model.site_body, np.int64)
+    site_pos = np.asarray(model.site_pos, np.float64).reshape(-1, 3)
+    ten_body, ten_local, ten_mask_T = _endpoint_tables(
+        site_body[ends], site_pos[ends], body_mask)
+    ten_range = field("ten_spatial_range", 2)[limited]
+    pairs = field("pair_body", 2, dtype=np.int64)
+    pair_body, _, pair_mask_T = _endpoint_tables(pairs, np.zeros((len(pairs), 2, 3)), body_mask)
+    return {
+        "ten_body": ten_body, "ten_local": ten_local, "ten_mask_T": ten_mask_T,
+        "ten_lo": ten_range[:, 0], "ten_hi": ten_range[:, 1],
+        "pair_body": pair_body, "pair_mask_T": pair_mask_T,
+        # [P, side a/b, end 0/1, 3]: each side's segment in its body frame
+        "pair_seg": np.stack([field("pair_seg_a", 2, 3), field("pair_seg_b", 2, 3)], 1),
+        "pair_radius": field("pair_radius", 2).sum(1),  # in float64, as JAX's ra + rb
+        "pair_friction": field("pair_friction"),
+    }
+
+
 @functools.lru_cache(maxsize=64)
 def model_tensors(
     model: PhysModel, device: torch.device, dtype: torch.dtype
@@ -132,7 +192,9 @@ def model_tensors(
             moment[a, dadr] += coef
     body_mask = s.body_mask.astype(np.float64)
     con_mask = s.con_mask.astype(np.float64)
-    tables = {**_fluid_coefficients(model), **_tendon_tables(model)}
+    tables = {**_fluid_coefficients(model), **_tendon_tables(model),
+              **_affine_tables(model, s), **_tendon_pair_tables(model, body_mask)}
+    index = ("aff_act", "ten_body", "pair_body")  # gathered by, not multiplied
     return types.SimpleNamespace(
         eye=torch.eye(3, dtype=dtype, device=device),
         body_rot=t(quat2mat(np.asarray(model.body_quat, np.float64))),
@@ -168,7 +230,7 @@ def model_tensors(
         act_moment=t(moment),
         nonfree_qadr=t(s.nonfree_qadr, long),
         nonfree_dadr=t(s.nonfree_dadr, long),
-        **{k: t(v) for k, v in tables.items()},
+        **{k: t(v, long if k in index else dtype) for k, v in tables.items()},
     )
 
 

@@ -24,8 +24,10 @@ import numpy as np
 # Models whose constants are committed under ``assets/`` (written by
 # ``envpool_tpu_torch/tools/export_models.py``): model name -> data file.
 # A gymnasium XML goes by its file name; a dm_control suite model by
-# ``dmc:<domain>``, and a procedural one (``cartpole._make_model(n)``,
-# ``swimmer._make_model(n)``) by ``dmc:<domain>_<n>``.
+# ``dmc:<domain>``, a procedural one (``cartpole._make_model(n)``,
+# ``swimmer._make_model(n)``) by ``dmc:<domain>_<n>``, and one that a suite
+# module generates for a task (lqr, quadruped, manipulator, stacker) by
+# ``dmc:<domain>_<task>`` (``tools/export_models._GENERATED``).
 ASSETS = {
     "ant.xml": "ant.npz",
     "half_cheetah.xml": "half_cheetah.npz",
@@ -45,6 +47,11 @@ ASSETS = {
             "acrobot", "cartpole", "cartpole_2", "cartpole_3", "cheetah",
             "hopper", "humanoid", "humanoid_CMU", "pendulum", "reacher",
             "swimmer_6", "swimmer_15", "walker",
+            "point_mass", "ball_in_cup", "fish", "finger", "lqr_2_1", "lqr_6_2",
+            "quadruped_walk", "quadruped_run", "quadruped_escape", "quadruped_fetch",
+            "manipulator_bring_ball", "manipulator_bring_peg",
+            "manipulator_insert_ball", "manipulator_insert_peg",
+            "stacker_2", "stacker_4",
         )
     },
 }

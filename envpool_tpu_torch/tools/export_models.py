@@ -13,12 +13,18 @@ pickle, ``mujoco``, ``gymnasium`` or ``dm_control``:
   suite's shared assets (``suite.common.ASSETS``), as the JAX package's
   ``envs/mujoco_dmc/base.py`` loads it (Apache-2.0);
 * ``dmc:<domain>_<n>``: the suite's procedural model
-  ``<domain>._make_model(n)`` (cartpole's poles, swimmer's links).
+  ``<domain>._make_model(n)`` (cartpole's poles, swimmer's links);
+* ``dmc:lqr_<b>_<a>``, ``dmc:quadruped_<task>``,
+  ``dmc:manipulator_<task>``, ``dmc:stacker_<n>``: the model a suite
+  module's generator builds for that task (``_GENERATED``), lqr's from
+  ``RandomState(42)``.
 
 Swimmer's data also holds the ``nose`` geom's offset and body and the
 ``target`` geom's height, which its task reads (``load_constants``); the
 cheetah's holds CheetahRun's bank of settled reset states
-(:func:`cheetah_bank`).  It needs ``mujoco``, ``gymnasium`` and
+(:func:`cheetah_bank`); the models of ``NAMED`` hold the joint and geom
+names, site sizes and the like that their tasks read
+(:func:`named_constants`).  It needs ``mujoco``, ``gymnasium`` and
 ``dm_control``::
 
     python -m envpool_tpu_torch.tools.export_models
@@ -418,23 +424,80 @@ def gymnasium_xml(name: str) -> str:
     )
 
 
+# dm_control models built by a suite module's generator rather than read
+# from ``<domain>.xml``: name -> (module, generator, arguments).  The JAX
+# package builds them with these arguments (``envs/mujoco_dmc/tasks2.py``,
+# ``tasks3.py``); lqr's with ``RandomState(LQR_SEED)``, its ``gen_seed``.
+LQR_SEED = 42
+_GENERATED = {
+    "lqr_2_1": ("lqr", "_make_model", (2, 1, "rng")),
+    "lqr_6_2": ("lqr", "_make_model", (6, 2, "rng")),
+    "quadruped_walk": ("quadruped", "make_model", {"floor_size": 20 * 0.5}),
+    "quadruped_run": ("quadruped", "make_model", {"floor_size": 20 * 5.0}),
+    "quadruped_escape": ("quadruped", "make_model",
+                         {"floor_size": 40, "terrain": True, "rangefinders": True}),
+    "quadruped_fetch": ("quadruped", "make_model", {"walls_and_ball": True}),
+    "manipulator_bring_ball": ("manipulator", "make_model", (False, False)),
+    "manipulator_bring_peg": ("manipulator", "make_model", (True, False)),
+    "manipulator_insert_ball": ("manipulator", "make_model", (False, True)),
+    "manipulator_insert_peg": ("manipulator", "make_model", (True, True)),
+    "stacker_2": ("stacker", "make_model", (2,)),
+    "stacker_4": ("stacker", "make_model", (4,)),
+}
+
+
 def dmc_mj_model(name: str):
-    """The ``mujoco.MjModel`` of ``dmc:<domain>`` or ``dmc:<domain>_<n>``."""
+    """The ``mujoco.MjModel`` of ``dmc:<domain>``, ``dmc:<domain>_<n>`` or
+    one of the generated models of ``_GENERATED``."""
     import mujoco
     from dm_control import suite
     from dm_control.suite import common
     from dm_control.utils import io as dmc_io
 
-    domain, _, n = name.removeprefix("dmc:").rpartition("_")
+    key = name.removeprefix("dmc:")
+    assets = common.ASSETS
+    if key in _GENERATED:
+        module, fn, args = _GENERATED[key]
+        make = getattr(importlib.import_module(f"dm_control.suite.{module}"), fn)
+        if isinstance(args, dict):
+            xml = make(**args)
+        else:
+            xml = make(*(np.random.RandomState(LQR_SEED) if a == "rng" else a for a in args))
+        if isinstance(xml, tuple):  # (xml, assets)
+            xml, assets = xml
+        return mujoco.MjModel.from_xml_string(
+            xml.decode() if isinstance(xml, bytes) else xml, assets)
+    domain, _, n = key.rpartition("_")
     if not n.isdigit():
-        domain, n = name.removeprefix("dmc:"), ""
+        domain, n = key, ""
     if n:
         module = importlib.import_module(f"dm_control.suite.{domain}")
         xml = module._make_model(int(n))
     else:
         path = os.path.join(os.path.dirname(suite.__file__), f"{domain}.xml")
         xml = dmc_io.GetResource(path)
-    return mujoco.MjModel.from_xml_string(xml.decode(), common.ASSETS)
+    return mujoco.MjModel.from_xml_string(xml.decode(), assets)
+
+
+def named_constants(m) -> dict[str, np.ndarray]:
+    """What the dm_control tasks of the second slice read from their
+    ``mujoco.MjModel`` beyond the PhysModel: joint and geom names, site
+    sizes, the heightfield's size and the rangefinder count."""
+    import mujoco
+
+    return {
+        "joint_names": np.asarray([m.joint(j).name for j in range(m.njnt)], np.str_),
+        "geom_names": np.asarray([m.geom(g).name for g in range(m.ngeom)], np.str_),
+        "site_size": np.asarray(m.site_size, np.float64).reshape(-1, 3),
+        "hfield_size": np.asarray(m.hfield_size, np.float64).reshape(-1, 4),
+        "n_rangefinder": np.asarray(
+            int(np.sum(m.sensor_type == mujoco.mjtSensor.mjSENS_RANGEFINDER)), np.int64),
+    }
+
+
+# The models whose tasks read named_constants.
+NAMED = ("dmc:point_mass", "dmc:ball_in_cup", "dmc:fish", "dmc:finger",
+         *(f"dmc:{k}" for k in _GENERATED))
 
 
 def swimmer_constants(m) -> dict[str, np.ndarray]:
@@ -474,7 +537,8 @@ def main(argv: list[str] | None = None) -> None:
         path = os.path.join(ASSET_DIR, data)
         if name.startswith("dmc:"):
             m = dmc_mj_model(name)
-            consts = swimmer_constants(m) if name.startswith("dmc:swimmer") else None
+            consts = (swimmer_constants(m) if name.startswith("dmc:swimmer")
+                      else named_constants(m) if name in NAMED else None)
             model = from_mj_model(m)
             save_npz(model, path, consts)
             if name == "dmc:cheetah":

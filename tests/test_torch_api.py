@@ -55,10 +55,13 @@ def test_registry_surface():
     from envpool_tpu.core.registry import registry
     from envpool_tpu_torch.core.registry import registry as torch_registry
 
-    # dm_control: the ids whose physics the port has
+    # dm_control: every id but the five Dog ids
     # (tests/test_torch_mujoco_dmc.py::test_ported_ids names them).
     dmc = {t for t, (path, _, _) in torch_registry.specs.items()
            if path.endswith(".mujoco_dmc")}
+    jax_dmc = {t for t, (path, _, _) in registry.specs.items() if path.endswith(".mujoco_dmc")}
+    assert len(dmc) == 46 and jax_dmc - dmc == {
+        "DogStand-v1", "DogWalk-v1", "DogTrot-v1", "DogRun-v1", "DogFetch-v1"}
     ported = [
         t for t in envpool_tpu.list_all_envs()
         if t == TASK

@@ -38,7 +38,7 @@ from test_torch_classic import assert_ts_close, host, jax_draws, to_jax
 
 STEP_TOL = 1e-4
 
-# The 26 ids the port registers: every dmc id whose physics it has.
+# The 46 ids the port registers: every dmc id but the five Dog ids.
 PORTED = sorted(
     t for t, (path, _, _) in torch_registry.specs.items() if path.endswith(".mujoco_dmc")
 )
@@ -94,9 +94,85 @@ def _swimmer(jenv, sub):
     }
 
 
+def _point_mass(jenv, sub):
+    """JAX's joints, first direction and the candidates its rejection loop
+    draws for the second direction (the first that passes is JAX's pick)."""
+    k1, k2 = jax.random.split(sub)
+    out = {"joints": _joints(jenv, k1)}
+    if jenv.task == "hard":
+        ka, kb = jax.random.split(k2)
+        kb, sub0 = jax.random.split(kb)
+        cands = [jax.random.normal(sub0, (2,), jnp.float32)]
+        for _ in range(15):
+            kb, s = jax.random.split(kb)
+            cands.append(jax.random.normal(s, (2,), jnp.float32))
+        out.update(dir1=jax.random.normal(ka, (2,), jnp.float32), dir2=jnp.stack(cands))
+    return out
+
+
+def _ball_in_cup(jenv, sub):
+    kx, kz = jax.random.split(sub)
+    return {"ball": jnp.stack([_uniform(kx, (), -0.2, 0.2), _uniform(kz, (), 0.2, 0.5)])}
+
+
+def _fish(jenv, sub):
+    kq, kj, kt = jax.random.split(sub, 3)
+    return {
+        "quat": jax.random.normal(kq, (4,), jnp.float32),
+        "joints": _uniform(kj, (7,), -0.2, 0.2),
+        "target": jax.random.uniform(kt, (3,), jnp.float32, jnp.asarray([-0.4, -0.4, 0.1]),
+                                     jnp.asarray([0.4, 0.4, 0.3])),
+    }
+
+
+def _finger(jenv, sub):
+    k1, k2 = jax.random.split(sub)
+    return {"joints": _joints(jenv, k1), "angle": _uniform(k2, (), -jnp.pi, jnp.pi)}
+
+
+def _quadruped(jenv, sub):
+    kq, kb, _ = jax.random.split(sub, 3)
+    if jenv.task != "fetch":
+        return {"quat": jax.random.normal(kq, (4,), jnp.float32)}
+    k1, k2, _ = jax.random.split(kq, 3)
+    k4, _ = jax.random.split(kb)
+    spawn = 0.5 * jenv._terrain_or_floor()
+    return {"azimuth": _uniform(k1, (), 0, 2 * jnp.pi), "xy": _uniform(k2, (2,), -spawn, spawn),
+            "ball_xy": _uniform(k4, (2,), -spawn, spawn)}
+
+
+def _manipulator(jenv, sub):
+    """JAX's unit draws: its target angle reuses the draw of the target's x
+    or z, and the object's angle and speed share one draw."""
+    ka, kt1, kt2, kc, ko1, ko2, kv = jax.random.split(sub, 7)
+    u = jax.random.uniform
+    return {"arm": u(ka, (8,)), "target": jnp.stack([u(kt1), u(kt2)]), "mode": u(kc),
+            "object": jnp.stack([u(ko1), u(ko2), u(kv)])}
+
+
+def _stacker(jenv, sub):
+    ka, kh, kx, kb = jax.random.split(sub, 4)
+    boxes = []
+    for kbox in jax.random.split(kb, jenv._n_boxes):
+        k1, k2, k3 = jax.random.split(kbox, 3)
+        boxes.append(jnp.stack([_uniform(k1, (), 0.1, 0.3), _uniform(k2, (), 0.0, 0.7),
+                                _uniform(k3, (), 0, 2 * jnp.pi)]))
+    return {"arm": jax.random.uniform(ka, (8,)),
+            "height": jax.random.randint(kh, (), 0, jenv._n_boxes),
+            "target_x": _uniform(kx, (), -0.37, 0.37), "boxes": jnp.stack(boxes)}
+
+
 # JAX's reset draws of each task class from its reset subkey, in the
 # port's draw layout.
 _DRAWS = {
+    "PointMassEnv": _point_mass,
+    "BallInCupEnv": _ball_in_cup,
+    "FishEnv": _fish,
+    "LqrEnv": lambda jenv, sub: {"unit": jax.random.normal(sub, (jenv.model.nq,), jnp.float32)},
+    "FingerEnv": _finger,
+    "QuadrupedEnv": _quadruped,
+    "ManipulatorEnv": _manipulator,
+    "StackerEnv": _stacker,
     "CheetahEnv": lambda jenv, sub: {"index": jax.random.randint(sub, (), 0, jenv._BANK)},
     "PendulumEnv": lambda jenv, sub: {"angle": _uniform(sub, (), -jnp.pi, jnp.pi)},
     "CartpoleEnv": _cartpole,
@@ -251,6 +327,12 @@ def test_ported_ids():
         "SwimmerSwimmer6-v1", "SwimmerSwimmer15-v1", "HumanoidStand-v1",
         "HumanoidWalk-v1", "HumanoidRun-v1", "HumanoidRunPureState-v1",
         "HumanoidCMUStand-v1", "HumanoidCMUWalk-v1", "HumanoidCMURun-v1",
+        "PointMassEasy-v1", "PointMassHard-v1", "BallInCupCatch-v1", "FishUpright-v1",
+        "FishSwim-v1", "LqrLqr21-v1", "LqrLqr62-v1", "FingerSpin-v1", "FingerTurnEasy-v1",
+        "FingerTurnHard-v1", "QuadrupedWalk-v1", "QuadrupedRun-v1", "QuadrupedEscape-v1",
+        "QuadrupedFetch-v1", "ManipulatorBringBall-v1", "ManipulatorBringPeg-v1",
+        "ManipulatorInsertBall-v1", "ManipulatorInsertPeg-v1", "StackerStack2-v1",
+        "StackerStack4-v1",
     ])
     assert set(PORTED) <= set(JAX_DMC) and len(JAX_DMC) == 51
     assert set(PORTED) <= set(envpool_tpu_torch.list_all_envs())
@@ -312,7 +394,8 @@ def test_tasks_run_without_mujoco_or_dm_control(monkeypatch):
         monkeypatch.setitem(sys.modules, name, None)
     load_model.cache_clear()
     try:
-        for task in ("SwimmerSwimmer15-v1", "HopperHop-v1"):
+        for task in ("SwimmerSwimmer15-v1", "HopperHop-v1", "QuadrupedEscape-v1",
+                     "ManipulatorInsertPeg-v1"):
             eng = Engine(envpool_tpu_torch.make_spec(task, num_envs=2, device="cpu").env)
             ps, ts = eng.step(eng.init(), eng.zero_action())
             assert bool(ts["step_type"].eq(0).all()) and bool(torch.isfinite(ps.env_state["qpos"]).all())
@@ -480,9 +563,11 @@ def test_task_draws_range_and_distribution():
 
 
 def test_physics_dtype():
-    """Only swimmer15's model is conditioned so badly that a float32 env
-    step lands past the one-step bar from float64 on most states; it steps
-    in float64 and rounds once, and its state stays float32."""
+    """The models conditioned worse than ``COND_FLOAT64`` at ``qpos0`` step
+    in float64 and round once, and their state stays float32: swimmer15
+    (a float32 env step lands past the one-step bar from float64 on most of
+    its states), fish (8.9e5), manipulator (3.7e5-6.1e5: a body of 1e-6 kg
+    in the hand) and stacker (1.2e6)."""
     from envpool_tpu_torch.envs.mujoco_dmc.base import COND_FLOAT64
     from envpool_tpu_torch.physics.dynamics import step
 
@@ -491,7 +576,10 @@ def test_physics_dtype():
         env = envpool_tpu_torch.make_spec(task, device="cpu").env
         assert (env.physics_dtype is torch.float64) == (env.mass_condition() > COND_FLOAT64)
         wide[task] = env.physics_dtype
-    assert [t for t, d in wide.items() if d is not None] == ["SwimmerSwimmer15-v1"]
+    assert [t for t, d in wide.items() if d is not None] == [
+        "FishSwim-v1", "FishUpright-v1", "ManipulatorBringBall-v1", "ManipulatorBringPeg-v1",
+        "ManipulatorInsertBall-v1", "ManipulatorInsertPeg-v1", "StackerStack2-v1",
+        "StackerStack4-v1", "SwimmerSwimmer15-v1"]
     for task, f32_median in (("SwimmerSwimmer6-v1", (0, 1e-4)), ("SwimmerSwimmer15-v1", (1e-4, 1))):
         env, d = _draws(task, n=32)
         q, _, extras = env.init_state(d)

@@ -21,6 +21,7 @@ import torch
 import envpool_tpu
 import envpool_tpu_torch
 from envpool_tpu_torch.core import rng
+from envpool_tpu_torch.core.engine import Engine
 from envpool_tpu_torch.physics import dynamics as tdyn
 from test_torch_classic import EnginePair, assert_ts_close, host
 
@@ -119,14 +120,16 @@ _UNPORTED_XML = {
 <mujoco><worldbody><body pos="0 0 1">
   <joint type="ball" range="0 30"/><geom type="sphere" size="0.1" mass="1"/>
 </body></worldbody></mujoco>""",
-    "spatial tendons": """
+}
+# A limited spatial tendon (a string): the port's physics steps it.
+_STRING_XML = """
 <mujoco><worldbody>
   <site name="anchor" pos="0 0 2"/>
-  <body pos="0 0 1"><joint type="slide" axis="0 0 1"/>
+  <body pos="0 0 1"><joint name="drop" type="slide" axis="0 0 1"/>
     <geom type="sphere" size="0.1" mass="1"/><site name="bob"/></body>
 </worldbody><tendon><spatial limited="true" range="0 1.5">
-  <site site="anchor"/><site site="bob"/></spatial></tendon></mujoco>""",
-}
+  <site site="anchor"/><site site="bob"/></spatial></tendon>
+<actuator><motor joint="drop" gear="1"/></actuator></mujoco>"""
 
 
 def test_pools_run_and_unported_options_raise(tmp_path):
@@ -157,6 +160,20 @@ def test_pools_run_and_unported_options_raise(tmp_path):
             # the extractor or the env, whichever meets the feature first
             export_models.main(["--xml", str(path), "--out", str(npz)])
             envpool_tpu_torch.make_spec(TASK, device="cpu", xml_file=str(npz))
+    path = tmp_path / "string.xml"
+    path.write_text(_STRING_XML)
+    npz = tmp_path / "string.npz"
+    export_models.main(["--xml", str(path), "--out", str(npz)])
+    env = envpool_tpu_torch.make_spec(TASK, num_envs=n, device="cpu", xml_file=str(npz)).env
+    assert env.model.ten_spatial_limited.all()
+    eng = Engine(env)
+    ps, _ = eng.reset(eng.init(), torch.ones(n, dtype=torch.bool))
+    for _ in range(40):
+        ps, ts = eng.step(ps, {"action": torch.zeros(n, 1)})
+    # the bob starts 1 m below the anchor and falls: the string holds it at
+    # its range (1.5 m, the slide at -0.5) plus the penalty's give
+    drop = ps.env_state["qpos"][:, 0]
+    assert bool(torch.isfinite(ts["obs"]).all()) and bool(((drop < -0.4) & (drop > -0.6)).all())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             envpool_tpu_torch.make(TASK, env_type="gymnasium")

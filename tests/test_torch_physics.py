@@ -332,15 +332,22 @@ def _ball_xml(directory, limited=False):
 
 
 def test_unported_features_raise(models, states, tmp_path):
+    """The constraint solver and a limited ball joint raise; body-body
+    pairs and a limited spatial tendon step (their forces are held to JAX
+    in ``tests/test_torch_mujoco_dmc_forces.py``)."""
     _, tm = models
     q, qd, u = _t(*states)
     with pytest.raises(NotImplementedError, match="contact_solver"):
         tdyn.step(tm, q, qd, u, contact=tdyn.ContactParams(solver="mujoco"))
-    with pytest.raises(NotImplementedError, match="body-body contact pairs"):
-        tdyn.step(tm, q, qd, u, contact=tdyn.ContactParams(pairs=True))
-    string = dataclasses.replace(tm, ten_spatial_sites=np.zeros((1, 2), np.int64))
-    with pytest.raises(NotImplementedError, match="spatial tendons"):
-        tdyn.step(string, q, qd, u)
+    out = tdyn.step(tm, q, qd, u, contact=tdyn.ContactParams(pairs=True))
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    # a string from the world's origin to a site on the torso
+    string = dataclasses.replace(
+        tm, site_body=np.asarray([0, 1]), site_pos=np.zeros((2, 3)), site_names=("a", "b"),
+        ten_spatial_sites=np.asarray([[0, 1]]), ten_spatial_limited=np.ones(1, bool),
+        ten_spatial_range=np.asarray([[0.0, 0.1]]))
+    out = tdyn.step(string, q, qd, u)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
     pytest.importorskip("mujoco")
     with pytest.raises(NotImplementedError, match="ball-joint limits"):
         export_models.from_mjcf(_ball_xml(tmp_path, limited=True))
