@@ -14,11 +14,16 @@ functional entry points, checks the card against the CPU port, profiles
 engine steps and times a rollout; so too for the dm_control suite's
 CheetahRun-v1 at 4096 envs, whose resets must match the CPU's bit for bit,
 and QuadrupedRun-v1 at 4096 envs (affine-bias servos on tendon
-transmissions), whose resets must match the CPU's drop heights.  Every
-other Gym-MuJoCo id gets a short card-vs-CPU check at 256 envs (1024 with
-a free base), and every other dm_control id one at 256 envs (among them
+transmissions), whose resets must match the CPU's drop heights; so too
+for toy_text's FrozenLake8x8-v1 at 16384 envs (card and CPU equal in every
+field) and the dog's DogRun-v1 at 4096 envs (79 dofs stepped in float64;
+its card-vs-CPU phase at 128 envs).  Every other toy_text id and Dummy-v0
+(one and two players) get an exact card-vs-CPU check at 256 envs, every
+other Gym-MuJoCo id a short card-vs-CPU check at 256 envs (1024 with
+a free base), every other dm_control id one at 256 envs (among them
 the limited spatial tendon of ball_in_cup and the body-body contact pairs
-of finger, quadruped fetch, manipulator and stacker).  It also times K2
+of finger, quadruped fetch, manipulator and stacker), and the other four
+Dog ids one at 32 envs.  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
 holds it to its chain bound: each frame's most emulated instructions on
 one machine times one dependent shared-memory load, measured on the card.
@@ -74,16 +79,29 @@ SPREAD_FACTOR = 4.0
 # physics (tests/test_torch_physics.py).
 CARTPOLE_TOL = 2e-6
 PHYSICS_TOL = 1e-4
-# dm_control: CheetahRun-v1 and QuadrupedRun-v1 at the width of bench.py's
-# sweep row (bench.py:201); the other 44 ids a short check at N_SHORT envs.
+# dm_control: CheetahRun-v1, QuadrupedRun-v1 and DogRun-v1 at the width of
+# bench.py's sweep row (bench.py:201); the other 44 ids a short check at
+# N_SHORT envs.  DogRun-v1's card-vs-CPU phase runs at N_DOG_VS envs and
+# the other four Dog ids' at N_DOG_SHORT: the CPU's side of 4096 dogs (79
+# dofs, 6 float64 substeps per step) would not fit the script's time.
 N_DMC = 4096
+N_DOG_VS = 128
+N_DOG_SHORT = 32
+# toy_text: FrozenLake8x8-v1 at the width of bench.py's sweep row
+# (bench.py:198); every other toy_text id and Dummy-v0 an exact short check
+# at N_EXACT envs.
+N_FROZEN = 16384
+N_EXACT = 256
 # The dm_control ids held to the SPREAD rule: humanoid_CMU's float32 step
 # lands past PHYSICS_TOL of float64 on some states on either device, and
 # QuadrupedRun-v1's toe-force obs (arcsinh of 2e4 times a depth, which
 # scales a depth's rounding 2e4-fold) did so at N_DMC envs under the strict
-# rule (PERF.md, section 6); the other ids pass the strict rule.
+# rule, as every Dog id's touch and foot-force obs (2e4 times a depth) did
+# (DogRun-v1 at 256 envs, the others at 64; PERF.md, section 6); the other
+# ids pass the strict rule.
 DMC_SPREAD = ("HumanoidCMUStand-v1", "HumanoidCMUWalk-v1", "HumanoidCMURun-v1",
-              "QuadrupedRun-v1")
+              "QuadrupedRun-v1", "DogStand-v1", "DogWalk-v1", "DogTrot-v1", "DogRun-v1",
+              "DogFetch-v1")
 # The classes whose reference physics diverges on some start states, on
 # every device (a 1e-6 kg body under explicit pair springs at kp 1e4): an
 # env whose state leaves the finite numbers on both devices alike is left
@@ -95,12 +113,13 @@ DIVERGE_SHARE = 0.25
 
 
 # The script's time limit is fixed while it grows: the short checks of the
-# earlier slices' ids (Gym-MuJoCo, and the first dm_control slice's
-# classes) take 2 checked steps, the newest ids 3 (PERF.md, section 5).
-SHORT_STEPS_EARLIER = 2
-EARLIER_DMC_CLASSES = ("DmcAcrobotEnv", "PendulumEnv", "CartpoleEnv", "CheetahEnv",
-                       "WalkerEnv", "HopperEnv", "DmcReacherEnv", "SwimmerEnv",
-                       "DmcHumanoidEnv", "HumanoidCMUEnv")
+# earlier slices' ids take fewer checked steps than the newest ids' 3
+# (Gym-MuJoCo's 1, the dm_control ids of the first two slices 2), the
+# Gym-MuJoCo ids after 20 warm-up steps, not 30, and the main paths'
+# profiles take 2 steps, not 4 (PERF.md, section 5).
+SHORT_STEPS = {"gym": 1, "dmc": 2}
+SHORT_WARMUP_GYM = 20
+PROFILE_STEPS = 2
 
 
 def host_cpu() -> str:
@@ -763,8 +782,10 @@ def phase_float_adapters(device: str, task: str, n: int, episode: int,
         reward += float(rew.sum())
     got = {k: tuple(v.shape) for k, v in fields(obs).items()}
     _check(got == shapes, f"obs shapes {got}, expected {shapes}")
+    dtypes = {k.removeprefix("obs:"): v.torch_dtype
+              for k, v in pool.spec.state_array_spec.items()}
     for k, v in fields(obs).items():
-        _check(v.dtype == torch.float32 and v.device.type == device,
+        _check(v.dtype == dtypes[k] and v.device.type == device,
                f"obs {k}: {v.dtype} on {v.device}")
         _check(bool(torch.isfinite(v).all()), f"obs {k} not finite")
     _check(np.isfinite(reward), "non-finite reward")
@@ -915,14 +936,15 @@ def _tree_equal(a, b) -> bool:
 
 def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                             steps: int, tol: float, spread: bool = False,
-                            warm: dict | None = None) -> dict:
+                            warm: dict | None = None, **make_kwargs) -> dict:
     """After ``warmup`` random steps on the card, ``steps`` engine steps
     each taken on the card and on the CPU from the same pool state and
-    action: float fields within ``tol * (1 + |cpu|)``, the rest equal.  A
+    action: float fields within ``tol * (1 + |cpu|)``, the rest equal
+    (``tol`` 0: toy_text's and Dummy's fields, all exact, equal).  A
     done flag may differ only where the new state lies within ``tol`` of
     its task's termination bound (and then the reward and discount with
     it): for CartPole, its thresholds; for the physics, the env's own
-    ``termination_margin``.
+    ``termination_margin``.  ``make_kwargs`` go to both pools.
 
     For the physics, the new state itself is held to ``tol``: an env whose
     substeps fall on different sides of a penalty-force switch on the card
@@ -963,9 +985,9 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     from envpool_tpu_torch.envs.physics_env import PhysicsEnv
     from envpool_tpu_torch.physics import dynamics
 
-    card = _pool(device, task, n)
+    card = _pool(device, task, n, **make_kwargs)
     cpu = Engine(envpool_tpu_torch.make_spec(task, num_envs=n, seed=SEED,
-                                             device="cpu").env)
+                                             device="cpu", **make_kwargs).env)
     env = cpu.env
     eng = card.engine
     gen = torch.Generator().manual_seed(SEED)
@@ -1096,7 +1118,8 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
             obs_keys = []
             skip = diverged = torch.zeros(n, dtype=torch.bool)
             cps, want = cpu.step(ps_cpu, {"action": act})
-            flip_ok = _cartpole_margin(want) < tol
+            flip_ok = (_cartpole_margin(want) < tol if task.startswith("CartPole")
+                       else torch.zeros(n, dtype=torch.bool))
         flipped = (got["done"].cpu() != want["done"]) & flip_ok & ~skip
         flips += int(flipped.sum())
         skipped += int(skip.sum())
@@ -1147,15 +1170,17 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                     differ &= ~flipped
                 _check(not bool(differ.any()), f"{k} differs at step {t}")
         if bool(bad.any()) and not physics:
-            # Which side is off: both against the CPU's float64 step.
-            _, want64 = cpu.step(PoolState(_float64(ps_cpu.env_state, "cpu"), *(
-                ps_cpu.key, ps_cpu.elapsed, ps_cpu.autoreset, ps_cpu.full_reset)),
-                {"action": act})
-            ref = want64["obs"].reshape(n, -1)
-            bad_fields["float64 step"] = (
-                f"card {float(rel(got['obs'].cpu().reshape(n, -1), ref)[bad].max()):.3g}, "
-                f"cpu {float(rel(want['obs'].reshape(n, -1), ref)[bad].max()):.3g} "
-                f"off on those envs; {int((bad & ps_cpu.autoreset).sum())} reset rows")
+            if want.get("obs") is not None and want["obs"].is_floating_point():
+                # Which side is off: both against the CPU's float64 step.
+                _, want64 = cpu.step(PoolState(_float64(ps_cpu.env_state, "cpu"), *(
+                    ps_cpu.key, ps_cpu.elapsed, ps_cpu.autoreset, ps_cpu.full_reset)),
+                    {"action": act})
+                ref = want64["obs"].reshape(n, -1)
+                bad_fields["float64 step"] = (
+                    f"card {float(rel(got['obs'].cpu().reshape(n, -1), ref)[bad].max()):.3g}, "
+                    f"cpu {float(rel(want['obs'].reshape(n, -1), ref)[bad].max()):.3g} "
+                    f"off on those envs; {int((bad & ps_cpu.autoreset).sum())} reset rows")
+            print(failure_report(bad, eng, cpu, ps_cpu, act, got, want, device))
         _check(not bool(bad.any()),
                f"{int(bad.sum())} envs differ by more than {tol:g} at step {t} "
                f"(largest per field: {bad_fields})")
@@ -1183,8 +1208,54 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
            if physics else "")
     )
     return {"worst": worst, "flips": flips, "skipped": skipped, "checked": n * steps,
+            "resets": resets,
             "diverged": n_diverged, "diverge_share": DIVERGE_SHARE if may_diverge else 0.0,
             "arbitrated": arbitrated, "obs_arbitrated": obs_arbitrated, **f64s}
+
+
+def _runs(idx: np.ndarray) -> list[tuple[int, int]]:
+    """The sorted indices ``idx`` as contiguous runs ``(first, last)``."""
+    if not len(idx):
+        return []
+    cut = np.flatnonzero(np.diff(idx) != 1)
+    return list(zip(idx[np.r_[0, cut + 1]].tolist(), idx[np.r_[cut, len(idx) - 1]].tolist()))
+
+
+def failure_report(bad, eng, cpu, ps_cpu, act, got, want, device) -> str:
+    """What a failed card-vs-CPU step of an env without physics tells about
+    where it went wrong: the failing envs as contiguous runs, their count in
+    each aligned block of 2048 and of 512 envs, and whether stepping the
+    same state and action again on the card, and on the CPU with one
+    thread, gives each side's own result bit for bit (a fault that comes
+    and goes, or one that the CPU's threads bring)."""
+    import torch
+
+    from envpool_tpu_torch.core.engine import PoolState, _tree_map
+
+    n = bad.shape[0]
+    idx = bad.nonzero()[:, 0].numpy()
+    runs = _runs(idx)
+    blocks = {size: np.bincount(idx // size, minlength=-(-n // size)).tolist()
+              for size in (2048, 512)}
+    ps_card = PoolState(*(_tree_map(lambda x: x.to(device), f) for f in (
+        ps_cpu.env_state, ps_cpu.key, ps_cpu.elapsed, ps_cpu.autoreset, ps_cpu.full_reset)))
+    _, again = eng.step(ps_card, {"action": act.to(device)})
+    torch.cuda.synchronize()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, one = cpu.step(ps_cpu, {"action": act})
+    finally:
+        torch.set_num_threads(threads)
+
+    def same(a, b):
+        return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+    return (f"failure report: {len(idx)} envs in {len(runs)} contiguous runs "
+            f"(first {runs[:8]}, last {runs[-8:]}); per aligned block of 2048 envs "
+            f"{blocks[2048]}, of 512 envs {blocks[512]}; the card again from the same "
+            f"state and action gives its own result bit for bit: {same(again, got)}; the "
+            f"CPU on 1 thread (of {threads}) gives its own: {same(one, want)}")
 
 
 def check_shares(what: str, v: dict) -> None:
@@ -1220,18 +1291,20 @@ def check_f64_parity(what: str, card64, cpu64, tol: float) -> None:
            f"{what}: more of the card's float32 steps past {tol / 2:g} of float64")
 
 
-def phase_spd_solve(device: str, n: int, nv: int) -> None:
-    """The physics' batched SPD solve alone at ``[n, nv, nv]``: its
+def phase_spd_solve(device: str, n: int, nv: int, dtype=None) -> None:
+    """The physics' batched SPD solve alone at ``[n, nv, nv]`` in the
+    physics' dtype (float32 unless the model steps in float64): its
     launches and device time per call, and its residual on random SPD
     matrices."""
     import torch
 
     from envpool_tpu_torch.physics.linalg import spd_solve
 
+    dtype = dtype or torch.float32
     gen = torch.Generator(device=device).manual_seed(SEED)
-    a = torch.randn(n, nv, nv, generator=gen, device=device)
-    M = a @ a.transpose(1, 2) + torch.eye(nv, device=device)
-    b = torch.randn(n, nv, generator=gen, device=device)
+    a = torch.randn(n, nv, nv, generator=gen, device=device, dtype=dtype)
+    M = a @ a.transpose(1, 2) + torch.eye(nv, device=device, dtype=dtype)
+    b = torch.randn(n, nv, generator=gen, device=device, dtype=dtype)
     x = spd_solve(M, b)
     res = float(((M @ x[..., None])[..., 0] - b).abs().max())
     _check(res < 1e-3, f"spd_solve residual {res}")
@@ -1243,7 +1316,8 @@ def phase_spd_solve(device: str, n: int, nv: int) -> None:
         torch.cuda.synchronize()
     events = prof.key_averages()
     names = sorted({e.key[:40] for e in _device_events(events)})
-    print(f"spd_solve at ({n}, {nv}, {nv}): {ms:.4f} ms per call, "
+    print(f"spd_solve at ({n}, {nv}, {nv}) {str(dtype).removeprefix('torch.')}: "
+          f"{ms:.4f} ms per call, "
           f"{_launches(events)} kernel launches ({'; '.join(names)}); max "
           f"residual {res:.3g}")
 
@@ -1375,37 +1449,51 @@ def phase_drop_reset(device: str, task: str, n: int) -> None:
 
 
 def phase_physics(device: str, card: str, task: str, n: int, episode: int,
-                  tol: float, rollout_steps: int) -> None:
-    """CartPole-v1 or a physics task at ``n`` envs through every entry
-    point, card vs CPU, a profile, the batched SPD solve at the model's
-    ``nv`` and a functional rollout; none of it may launch K1 or K2."""
+                  tol: float, rollout_steps: int, vs_n: int | None = None) -> None:
+    """CartPole-v1, FrozenLake8x8-v1 or a physics task at ``n`` envs
+    through every entry point, card vs CPU (at ``vs_n`` envs, where the
+    CPU's side would not fit the script's time at ``n``), a profile, for the physics the batched SPD solve at the
+    model's ``nv`` and dtype, and a functional rollout; none of it may
+    launch K1 or K2."""
     import envpool_tpu_torch
+    from envpool_tpu_torch.envs.physics_env import PhysicsEnv
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
 
     t0 = time.perf_counter()
     machine_frame.launches = 0
     fused_pool_resize.launches = 0
+    env = envpool_tpu_torch.make_spec(task, device="cpu").env
+    physics = isinstance(env, PhysicsEnv)
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
     seen = phase_float_adapters(device, task, n, episode, dm_episode=_is_dmc(task))
-    _check(task != "CartPole-v1" or seen["terminated"] > 0, "no CartPole termination")
-    _check(task not in ("HalfCheetah-v4", "CheetahRun-v1")
+    _check(task not in ("CartPole-v1", "FrozenLake8x8-v1") or seen["terminated"] > 0,
+           f"no {task} termination")
+    _check(task not in ("HalfCheetah-v4", "CheetahRun-v1", "DogRun-v1")
            or (seen["terminated"], seen["truncated"]) == (0, n),
            f"{task} ends its episodes by truncation alone")
     if task == "CheetahRun-v1":
         phase_bank_reset(device, task, n)
     if task.startswith("Quadruped"):
         phase_drop_reset(device, task, n)
-    vs = phase_float_card_vs_cpu(device, task, n, warmup=30, steps=3, tol=tol,
+    lap("adapters")
+    vs = phase_float_card_vs_cpu(device, task, vs_n or n, warmup=30, steps=3, tol=tol,
                                  spread=_spread(task))
     check_shares(task, vs)
-    if task != "CartPole-v1":
+    if physics:
         check_f64_parity(f"{task} state", vs["card"], vs["cpu"], tol)
         check_f64_parity(f"{task} obs", vs["card_obs"], vs["cpu_obs"], tol)
-    prof = phase_profile(device, task, n, 4, warmup=2)
-    if task != "CartPole-v1":
-        nv = envpool_tpu_torch.make_spec(task, device="cpu").env.model.nv
-        phase_spd_solve(device, n, nv)
+    lap("card vs CPU")
+    prof = phase_profile(device, task, n, PROFILE_STEPS, warmup=2)
+    if physics:
+        phase_spd_solve(device, n, env.model.nv, env.physics_dtype)
+    lap("profile")
     task_steps, _ = phase_throughput(device, task, n, rollout_steps)
+    lap("rollout")
     _check(fused_pool_resize.launches == machine_frame.launches == 0,
            f"{task} launched K1 or K2")
     print(
@@ -1413,18 +1501,42 @@ def phase_physics(device: str, card: str, task: str, n: int, episode: int,
         f"steps {task_steps:,.0f} env-steps/s; engine step {prof['launches']:.0f} "
         f"kernel launches, {prof['device_ms']:.3f} device ms, idle share "
         f"{prof['idle']:.3f}; K1 and K2 launched 0 times "
-        f"({time.perf_counter() - t0:.1f} s)"
+        f"({time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")"
     )
 
 
+def phase_exact_checks(device: str, checks: list[tuple[str, dict]]) -> None:
+    """A short card-vs-CPU check of each toy_text id and of Dummy-v0 (with
+    its make arguments): ``N_EXACT`` envs, 8 checked steps after 12 warm-up
+    steps, every field equal (toy_text's and Dummy's state is integer and
+    their float fields exact), with resets among the checked steps; none
+    may launch K1 or K2."""
+    from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+
+    t0 = time.perf_counter()
+    machine_frame.launches = 0
+    fused_pool_resize.launches = 0
+    for task, kwargs in checks:
+        print(f"  {task} {kwargs}:")
+        v = phase_float_card_vs_cpu(device, task, N_EXACT, warmup=12, steps=8, tol=0.0,
+                                    **kwargs)
+        _check(v["worst"] == 0.0, f"{task}: card and CPU differ")
+        _check(v["resets"] > 0, f"{task}: no reset among the checked steps")
+    _check(fused_pool_resize.launches == machine_frame.launches == 0,
+           "a toy_text or Dummy id launched K1 or K2")
+    print(f"exact card-vs-CPU checks of {len(checks)} toy_text and Dummy pools passed; "
+          f"K1 and K2 launched 0 times ({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_short_checks(device: str, family: str, tasks: list[str],
-                       share_warmup: bool = False) -> None:
-    """A short card-vs-CPU check of each id of a physics family: 3 steps
-    (``SHORT_STEPS_EARLIER`` for the ids of ``EARLIER_SLICES``) after 30
-    warm-up steps, at ``N_SHORT`` envs (``N_SHORT_FREE`` for the
-    Gym-MuJoCo ids with a free base), with ``share_warmup`` one warm-up
-    for ids that step alike (:func:`phase_float_card_vs_cpu`); none may
-    launch K1 or K2."""
+                       share_warmup: bool = False, n: int | None = None) -> None:
+    """A short card-vs-CPU check of each id of a physics family, as deep as
+    :func:`_short_depth` says, at ``n`` envs (by default ``N_SHORT``,
+    ``N_SHORT_FREE`` for the Gym-MuJoCo ids with a free base), with
+    ``share_warmup`` one warm-up for ids that step alike
+    (:func:`phase_float_card_vs_cpu`); none may launch K1 or K2."""
     import torch
 
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
@@ -1435,11 +1547,12 @@ def phase_short_checks(device: str, family: str, tasks: list[str],
     fused_pool_resize.launches = 0
     checks = []
     warm = {} if share_warmup else None
+    width = n
     for task in tasks:
-        n = N_SHORT_FREE if task.split("-")[0] in FREE_BASE else N_SHORT
+        n = width or (N_SHORT_FREE if task.split("-")[0] in FREE_BASE else N_SHORT)
         t_task = time.perf_counter()
-        steps = SHORT_STEPS_EARLIER if _earlier(task) else 3
-        checks.append(phase_float_card_vs_cpu(device, task, n, warmup=30, steps=steps,
+        steps, warmup = _short_depth(task)
+        checks.append(phase_float_card_vs_cpu(device, task, n, warmup=warmup, steps=steps,
                                               tol=PHYSICS_TOL, spread=_spread(task),
                                               warm=warm))
         check_shares(task, checks[-1])
@@ -1454,13 +1567,17 @@ def phase_short_checks(device: str, family: str, tasks: list[str],
           f"launched 0 times ({time.perf_counter() - t0:.1f} s)")
 
 
-def _earlier(task: str) -> bool:
-    """An id of the Gym-MuJoCo or first dm_control slice (not this
-    script's newest ids)."""
+def _short_depth(task: str) -> tuple[int, int]:
+    """``(checked steps, warm-up steps)`` of a short check: ``SHORT_STEPS``
+    of its family for the earlier slices' ids (the Gym-MuJoCo ids after
+    ``SHORT_WARMUP_GYM`` warm-up steps), 3 for the newest (the Dog ids),
+    after 30 otherwise."""
     from envpool_tpu_torch.core.registry import registry
 
     path, cls, _ = registry.specs[task]
-    return path.endswith(".mujoco_gym") or cls in EARLIER_DMC_CLASSES
+    if path.endswith(".mujoco_gym"):
+        return SHORT_STEPS["gym"], SHORT_WARMUP_GYM
+    return (3 if cls == "DogEnv" else SHORT_STEPS["dmc"]), 30
 
 
 def _is_dmc(task: str) -> bool:
@@ -1498,7 +1615,15 @@ def main() -> int:
     torch.backends.cuda.matmul.fp32_precision = "ieee"
     torch.backends.cudnn.allow_tf32 = False
     dmc_short = [t for t, (path, _, _) in registry.specs.items()
-                 if path.endswith(".mujoco_dmc") and t not in ("CheetahRun-v1", "QuadrupedRun-v1")]
+                 if path.endswith(".mujoco_dmc") and not t.startswith("Dog")
+                 and t not in ("CheetahRun-v1", "QuadrupedRun-v1")]
+    dog_short = [t for t in registry.specs if t.startswith("Dog") and t != "DogRun-v1"]
+    # Every toy_text id but the main path's, and Dummy-v0 at one and two
+    # players; episodes cut at 8 steps, so that the checked steps (the 13th
+    # to the 20th) cross an auto-reset of every env.
+    exact = [(t, {"max_episode_steps": 8}) for t, (path, _, _) in registry.specs.items()
+             if path.endswith(".toy_text") and t != "FrozenLake8x8-v1"]
+    exact += [("Dummy-v0", {"max_episode_steps": 8, "max_num_players": p}) for p in (1, 2)]
 
     # Build both kernels at once (one nvcc each).
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
@@ -1511,9 +1636,11 @@ def main() -> int:
     k2_stats, k2_launches = section_machine(device, card)
     print(f"[{time.perf_counter() - t_start:.1f} s] Machine2600-v0 and K2 done")
 
-    # -- CartPole-v1 and the physics: no Pallas kernel on their path -------
+    # -- CartPole-v1, FrozenLake8x8-v1 and the physics: no Pallas kernel on
+    # their path -----------------------------------------------------------
     for task, n, episode, tol, rollout_steps in (
         ("CartPole-v1", N_CARTPOLE, 15, CARTPOLE_TOL, 512),
+        ("FrozenLake8x8-v1", N_FROZEN, 15, 0.0, 512),
         ("HalfCheetah-v4", N_CHEETAH, 20, PHYSICS_TOL, 128),
         ("Ant-v4", N_ANT, 10, PHYSICS_TOL, 128),
         ("Humanoid-v4", N_HUMANOID, 10, PHYSICS_TOL, 32),
@@ -1521,6 +1648,9 @@ def main() -> int:
         ("QuadrupedRun-v1", N_DMC, 10, PHYSICS_TOL, 32),
     ):
         phase_physics(device, card, task, n, episode, tol, rollout_steps)
+    phase_physics(device, card, "DogRun-v1", N_DMC, 4, PHYSICS_TOL, 8, vs_n=N_DOG_VS)
+    print(f"[{time.perf_counter() - t_start:.1f} s] main paths done")
+    phase_exact_checks(device, exact)
 
     # -- every other physics id: a short card-vs-CPU check ----------------
     phase_short_checks(device, "Gym-MuJoCo", [
@@ -1528,6 +1658,7 @@ def main() -> int:
         if path.endswith(".mujoco_gym") and not t.startswith("HalfCheetah")
         and t not in ("Ant-v4", "Humanoid-v4")])
     phase_short_checks(device, "dm_control", dmc_short, share_warmup=True)
+    phase_short_checks(device, "dog", dog_short, share_warmup=True, n=N_DOG_SHORT)
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -80,9 +80,9 @@ def random_bits(sub: torch.Tensor, slot: int, k: int | None = None) -> torch.Ten
     return _mix32(stream ^ salt)
 
 
-def randint(sub: torch.Tensor, slot: int, n: int) -> torch.Tensor:
-    """``[N]`` int32 draws uniform in ``[0, n)``."""
-    return ((random_bits(sub, slot) * n) >> 32).to(torch.int32)
+def randint(sub: torch.Tensor, slot: int, n: int, k: int | None = None) -> torch.Tensor:
+    """``[N]`` int32 draws uniform in ``[0, n)``; ``[N, k]`` with ``k``."""
+    return ((random_bits(sub, slot, k) * n) >> 32).to(torch.int32)
 
 
 def uniform(sub: torch.Tensor, slot: int, k: int | None = None) -> torch.Tensor:

@@ -5,3 +5,11 @@ import envpool_tpu_torch.envs.atari.registration  # noqa: F401
 import envpool_tpu_torch.envs.classic_control.registration  # noqa: F401
 import envpool_tpu_torch.envs.mujoco_dmc.registration  # noqa: F401
 import envpool_tpu_torch.envs.mujoco_gym.registration  # noqa: F401
+import envpool_tpu_torch.envs.toy_text.registration  # noqa: F401
+from envpool_tpu_torch.core.registry import register as _register
+
+_register(
+    task_id="Dummy-v0",
+    import_path="envpool_tpu_torch.envs.dummy",
+    env_cls="DummyEnv",
+)

@@ -1,6 +1,6 @@
 """dm_control suite env family over the port's batched physics.
 
-Counterpart of ``envpool_tpu/envs/mujoco_dmc``: every domain but dog
+Counterpart of ``envpool_tpu/envs/mujoco_dmc``: every domain
 (``registration.py``).
 """
 
@@ -25,6 +25,7 @@ from .tasks2 import (
     LqrEnv,
 )
 from .tasks3 import ManipulatorEnv, QuadrupedEnv, StackerEnv
+from .tasks4 import DogEnv
 
 __all__ = [
     "BallInCupEnv",
@@ -34,6 +35,7 @@ __all__ = [
     "DmcEnv",
     "DmcHumanoidEnv",
     "DmcReacherEnv",
+    "DogEnv",
     "FingerEnv",
     "FishEnv",
     "HopperEnv",

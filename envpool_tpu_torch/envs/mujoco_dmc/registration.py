@@ -1,11 +1,7 @@
 """dm_control suite registration: the ids of
 ``envpool_tpu/envs/mujoco_dmc/registration.py`` (reference
 ``envpool/mujoco/dmc/registration.py``) in its order, each with
-``max_episode_steps=1000``: 46 of its 51.
-
-Left out: dog (DogStand, DogWalk, DogTrot, DogRun, DogFetch), whose task
-is not ported yet; its physics is (tendon transmissions, affine-bias
-servos).  ``make`` of a Dog id gives the registry's unknown-id error.
+``max_episode_steps=1000``: all 51.
 """
 
 from ...core.registry import register
@@ -59,6 +55,11 @@ _TASKS = [
     ("ManipulatorInsertPeg-v1", "ManipulatorEnv", "insert_peg", {}),
     ("StackerStack2-v1", "StackerEnv", "stack_2", {}),
     ("StackerStack4-v1", "StackerEnv", "stack_4", {}),
+    ("DogStand-v1", "DogEnv", "stand", {}),
+    ("DogWalk-v1", "DogEnv", "walk", {}),
+    ("DogTrot-v1", "DogEnv", "trot", {}),
+    ("DogRun-v1", "DogEnv", "run", {}),
+    ("DogFetch-v1", "DogEnv", "fetch", {}),
 ]
 
 for _task_id, _env_cls, _task_name, _extra in _TASKS:

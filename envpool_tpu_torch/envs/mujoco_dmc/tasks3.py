@@ -16,7 +16,8 @@ As there:
 * manipulator and stacker start without dm_control's collision rejection,
   and their touch obs come from site-to-object distances.
 
-dog (``tasks3.py``'s last domain) is not ported yet.
+dog (``tasks3.py``'s last domain) is in ``tasks4.py``, on the filter of
+:class:`FilteredEnv`.
 """
 
 from __future__ import annotations
@@ -35,7 +36,77 @@ from .rewards import tolerance
 _GRAVITY = (0.0, 0.0, -9.81)  # the accelerometer's offset, as in the JAX env
 
 
-class QuadrupedEnv(DmcEnv):
+class FilteredEnv(DmcEnv):
+    """What quadruped and dog share: a free torso, hinge obs, first-order
+    activation filters on every actuator and an accelerometer.
+
+    The filter (dyntype 2, tau = dynprm[0]) is integrated in closed form
+    over one control step of constant control: the physics applies its mean
+    activation, and its activation at the step's end rides in ``extras``
+    with the torso's velocity before the step (the accelerometer's
+    reference), as in the JAX envs."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        m, dev = self.model, self.device
+        hinges = np.flatnonzero(np.asarray(m.jnt_type) == 3)
+        self._hinge_qadr = torch.as_tensor(m.jnt_qposadr[hinges], dtype=torch.int64, device=dev)
+        self._hinge_dadr = torch.as_tensor(m.jnt_dofadr[hinges], dtype=torch.int64, device=dev)
+        self._torso = self.body_index("torso")
+        tau = float(m.act_dynprm[0])
+        control_dt = m.timestep * self.frame_skip
+        self._control_dt = control_dt
+        self._act_decay = float(np.exp(-control_dt / tau))
+        self._act_mean_w = float(tau / control_dt * (1.0 - np.exp(-control_dt / tau)))
+
+    def contact_rows(self, bodies) -> torch.Tensor:
+        """``[len(bodies), nc]`` float32 0/1 table of the contact spheres on
+        each body."""
+        con_body = np.asarray(self.model.con_body)
+        rows = np.stack([con_body == b for b in bodies])
+        return torch.as_tensor(np.float32(rows), device=self.device)
+
+    def _extras_spec(self):
+        return {"act": (self.model.nu,), "prev_v": (3,)}
+
+    def transform_action(self, action, extras):
+        """The filter's mean activation over the control step."""
+        return action + (extras["act"] - action) * self._act_mean_w
+
+    def next_state(self, state, action, qpos, qvel):
+        """The new coordinates, the activation at the step's end, and the
+        torso's velocity before the step."""
+        act = state["extras"]["act"]
+        extras = {"act": action + (act - action) * self._act_decay,
+                  "prev_v": self._torso_vel(state["qpos"], state["qvel"])}
+        return {"qpos": qpos, "qvel": qvel, "extras": extras}
+
+    def _body_vel(self, qpos, qvel, body: int):
+        """``[N, 3]`` world velocity of a body frame's origin (JAX's
+        ``body_vel``)."""
+        v_com, omega, _ = self.velocities(qpos, qvel)
+        return v_com[:, body] + torch.linalg.cross(
+            omega[:, body], self.xpos(qpos)[:, body] - self.xipos(qpos)[:, body])
+
+    def _torso_vel(self, qpos, qvel):
+        return self._body_vel(qpos, qvel, self._torso)
+
+    def _accelerometer(self, Rt, v, extras):
+        """``[N, 3]``: the torso's acceleration over the last step less
+        gravity, in the torso's frame (``Rt``, the torso's rotation
+        transposed; ``v``, its velocity now)."""
+        g = torch.tensor(_GRAVITY, dtype=v.dtype, device=v.device)
+        return _mv(Rt, (v - extras["prev_v"]) / self._control_dt - g)
+
+    def contact_normals(self, qpos, rows) -> torch.Tensor:
+        """``[N, k]``: the penalty contacts' normal force summed over each
+        row of a ``contact_rows`` table."""
+        mt = model_tensors(self.model, qpos.device, qpos.dtype)
+        pen = mt.con_radius - _contact_points(mt, *self._fk(qpos))[..., 2]
+        return torch.clamp_min(self.contact.kp * pen, 0.0) @ rows.T.to(qpos.dtype)
+
+
+class QuadrupedEnv(FilteredEnv):
     """quadruped:{walk,run,escape,fetch}."""
 
     DOMAIN = "quadruped"
@@ -49,22 +120,9 @@ class QuadrupedEnv(DmcEnv):
 
     def __init__(self, config):
         super().__init__(config)
-        m, dev = self.model, self.device
-        hinges = np.flatnonzero(np.asarray(m.jnt_type) == 3)
-        self._hinge_qadr = torch.as_tensor(m.jnt_qposadr[hinges], dtype=torch.int64, device=dev)
-        self._hinge_dadr = torch.as_tensor(m.jnt_dofadr[hinges], dtype=torch.int64, device=dev)
-        self._torso = self.body_index("torso")
+        m = self.model
         # The toes' contact spheres, as a [4, nc] 0/1 table.
-        con_body = np.asarray(m.con_body)
-        toes = np.stack([con_body == self.body_index(t) for t in self._TOES])
-        self._toe_rows = torch.as_tensor(np.float32(toes), device=dev)
-        # The activation filter (dyntype 2, tau = dynprm[0]) over one control
-        # step of constant control: its mean and its end, in closed form.
-        tau = float(m.act_dynprm[0])
-        control_dt = m.timestep * self.frame_skip
-        self._control_dt = control_dt
-        self._act_decay = float(np.exp(-control_dt / tau))
-        self._act_mean_w = float(tau / control_dt * (1.0 - np.exp(-control_dt / tau)))
+        self._toe_rows = self.contact_rows([self.body_index(t) for t in self._TOES])
         ws = self.site_index("workspace")
         self._workspace_body = int(m.site_body[ws])
         self._workspace_local = m.site_pos[ws]
@@ -141,40 +199,12 @@ class QuadrupedEnv(DmcEnv):
         extras = {"act": qpos.new_zeros(n, self.model.nu), "prev_v": qpos.new_zeros(n, 3)}
         return qpos, qpos.new_zeros(n, self.model.nv), extras
 
-    def _extras_spec(self):
-        return {"act": (self.model.nu,), "prev_v": (3,)}
-
-    # -- the activation filter ---------------------------------------------
-
-    def transform_action(self, action, extras):
-        """The filter's mean activation over the control step."""
-        return action + (extras["act"] - action) * self._act_mean_w
-
-    def next_state(self, state, action, qpos, qvel):
-        """The new coordinates, the activation at the step's end, and the
-        torso's velocity before the step (the accelerometer's reference, as
-        in the JAX env)."""
-        act = state["extras"]["act"]
-        extras = {"act": action + (act - action) * self._act_decay,
-                  "prev_v": self._torso_vel(state["qpos"], state["qvel"])}
-        return {"qpos": qpos, "qvel": qvel, "extras": extras}
-
     # -- observables -------------------------------------------------------
-
-    def _torso_vel(self, qpos, qvel):
-        """``[N, 3]`` world velocity of the torso frame's origin (JAX's
-        ``body_vel``)."""
-        v_com, omega, _ = self.velocities(qpos, qvel)
-        t = self._torso
-        return v_com[:, t] + torch.linalg.cross(
-            omega[:, t], self.xpos(qpos)[:, t] - self.xipos(qpos)[:, t])
 
     def _force_torque(self, qpos):
         """``[N, 24]``: arcsinh of each toe's force and torque, the force the
         summed penalty normal force on z and the rest zero."""
-        mt = model_tensors(self.model, qpos.device, qpos.dtype)
-        pen = mt.con_radius - _contact_points(mt, *self._fk(qpos))[..., 2]
-        f = torch.clamp_min(self.contact.kp * pen, 0.0) @ self._toe_rows.T.to(qpos.dtype)
+        f = self.contact_normals(qpos, self._toe_rows)
         out = qpos.new_zeros(qpos.shape[0], 4, 6)
         out[:, :, 2] = f
         return torch.arcsinh(out.flatten(1))
@@ -183,14 +213,12 @@ class QuadrupedEnv(DmcEnv):
         R = self.xmat(qpos)[:, self._torso]
         Rt = R.transpose(1, 2)
         v = self._torso_vel(qpos, qvel)
-        g = torch.tensor(_GRAVITY, dtype=qpos.dtype, device=qpos.device)
         obs = {
             "egocentric_state": torch.cat(
                 [qpos[:, self._hinge_qadr], qvel[:, self._hinge_dadr], extras["act"]], 1),
             "torso_velocity": _mv(Rt, v),
             "torso_upright": R[:, 2, 2],
-            "imu": torch.cat([qvel[:, 3:6],
-                              _mv(Rt, (v - extras["prev_v"]) / self._control_dt - g)], 1),
+            "imu": torch.cat([qvel[:, 3:6], self._accelerometer(Rt, v, extras)], 1),
             "force_torque": self._force_torque(qpos),
         }
         ps = self.xpos(qpos)

@@ -26,8 +26,9 @@ import numpy as np
 # A gymnasium XML goes by its file name; a dm_control suite model by
 # ``dmc:<domain>``, a procedural one (``cartpole._make_model(n)``,
 # ``swimmer._make_model(n)``) by ``dmc:<domain>_<n>``, and one that a suite
-# module generates for a task (lqr, quadruped, manipulator, stacker) by
-# ``dmc:<domain>_<task>`` (``tools/export_models._GENERATED``).
+# module generates for a task (lqr, quadruped, manipulator, stacker, dog) by
+# ``dmc:<domain>_<task>`` (``tools/export_models._GENERATED``; the four dog
+# locomotion tasks share ``dmc:dog``).
 ASSETS = {
     "ant.xml": "ant.npz",
     "half_cheetah.xml": "half_cheetah.npz",
@@ -51,7 +52,7 @@ ASSETS = {
             "quadruped_walk", "quadruped_run", "quadruped_escape", "quadruped_fetch",
             "manipulator_bring_ball", "manipulator_bring_peg",
             "manipulator_insert_ball", "manipulator_insert_peg",
-            "stacker_2", "stacker_4",
+            "stacker_2", "stacker_4", "dog", "dog_fetch",
         )
     },
 }

@@ -15,9 +15,9 @@ pickle, ``mujoco``, ``gymnasium`` or ``dm_control``:
 * ``dmc:<domain>_<n>``: the suite's procedural model
   ``<domain>._make_model(n)`` (cartpole's poles, swimmer's links);
 * ``dmc:lqr_<b>_<a>``, ``dmc:quadruped_<task>``,
-  ``dmc:manipulator_<task>``, ``dmc:stacker_<n>``: the model a suite
-  module's generator builds for that task (``_GENERATED``), lqr's from
-  ``RandomState(42)``.
+  ``dmc:manipulator_<task>``, ``dmc:stacker_<n>``, ``dmc:dog`` and
+  ``dmc:dog_fetch``: the model a suite module's generator builds for that
+  task (``_GENERATED``), lqr's from ``RandomState(42)``.
 
 Swimmer's data also holds the ``nose`` geom's offset and body and the
 ``target`` geom's height, which its task reads (``load_constants``); the
@@ -443,6 +443,11 @@ _GENERATED = {
     "manipulator_insert_peg": ("manipulator", "make_model", (True, True)),
     "stacker_2": ("stacker", "make_model", (2,)),
     "stacker_4": ("stacker", "make_model", (4,)),
+    # DogStand, DogWalk, DogTrot and DogRun build the dog on floors of 15,
+    # 15, 45 and 135 m; nothing else differs and no task of the port reads
+    # the floor's size, so the four share this one (stand's floor).
+    "dog": ("dog", "get_model_and_assets", {"floor_size": 15}),
+    "dog_fetch": ("dog", "get_model_and_assets", {"remove_ball": False}),
 }
 
 

@@ -55,19 +55,18 @@ def test_registry_surface():
     from envpool_tpu.core.registry import registry
     from envpool_tpu_torch.core.registry import registry as torch_registry
 
-    # dm_control: every id but the five Dog ids
-    # (tests/test_torch_mujoco_dmc.py::test_ported_ids names them).
+    # dm_control: all 51 ids, the five Dog ids among them.
     dmc = {t for t, (path, _, _) in torch_registry.specs.items()
            if path.endswith(".mujoco_dmc")}
     jax_dmc = {t for t, (path, _, _) in registry.specs.items() if path.endswith(".mujoco_dmc")}
-    assert len(dmc) == 46 and jax_dmc - dmc == {
-        "DogStand-v1", "DogWalk-v1", "DogTrot-v1", "DogRun-v1", "DogFetch-v1"}
+    assert len(dmc) == 51 and dmc == jax_dmc
+    assert {"DogStand-v1", "DogWalk-v1", "DogTrot-v1", "DogRun-v1", "DogFetch-v1"} <= dmc
     ported = [
         t for t in envpool_tpu.list_all_envs()
-        if t == TASK
+        if t in (TASK, "Dummy-v0")
         or t.startswith("Machine2600")
-        or registry.specs[t][0].endswith((".classic_control", ".mujoco_gym"))
-        or t in dmc
+        or registry.specs[t][0].endswith(
+            (".classic_control", ".mujoco_gym", ".mujoco_dmc", ".toy_text"))
     ]
     assert envpool_tpu_torch.list_all_envs() == ported
     with pytest.raises(ValueError):

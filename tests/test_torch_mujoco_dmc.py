@@ -38,7 +38,7 @@ from test_torch_classic import assert_ts_close, host, jax_draws, to_jax
 
 STEP_TOL = 1e-4
 
-# The 46 ids the port registers: every dmc id but the five Dog ids.
+# The ids the port registers: all 51 dmc ids.
 PORTED = sorted(
     t for t, (path, _, _) in torch_registry.specs.items() if path.endswith(".mujoco_dmc")
 )
@@ -162,6 +162,20 @@ def _stacker(jenv, sub):
             "target_x": _uniform(kx, (), -0.37, 0.37), "boxes": jnp.stack(boxes)}
 
 
+def _dog(jenv, sub):
+    ka, kv, kact, kb = jax.random.split(sub, 4)
+    draws = {"azimuth": _uniform(ka, (), 0, 2 * jnp.pi),
+             "v": jax.random.normal(kv, (3,), jnp.float32),
+             "act": _uniform(kact, (jenv.model.nu,), jnp.asarray(jenv._act_lo),
+                             jnp.asarray(jenv._act_hi))}
+    if jenv.task == "fetch":
+        k1, k2, k3, k4 = jax.random.split(kb, 4)
+        draws.update(ball_azimuth=_uniform(k1, (), 0, 2 * jnp.pi),
+                     height=_uniform(k2, (), 0.0, 3.0), speed=_uniform(k3, (), 0.0, 5.0),
+                     noise=jax.random.normal(k4, (2,), jnp.float32))
+    return draws
+
+
 # JAX's reset draws of each task class from its reset subkey, in the
 # port's draw layout.
 _DRAWS = {
@@ -173,6 +187,7 @@ _DRAWS = {
     "QuadrupedEnv": _quadruped,
     "ManipulatorEnv": _manipulator,
     "StackerEnv": _stacker,
+    "DogEnv": _dog,
     "CheetahEnv": lambda jenv, sub: {"index": jax.random.randint(sub, (), 0, jenv._BANK)},
     "PendulumEnv": lambda jenv, sub: {"angle": _uniform(sub, (), -jnp.pi, jnp.pi)},
     "CartpoleEnv": _cartpole,
@@ -192,8 +207,10 @@ def jax_reset_draws(jenv):
 @functools.cache
 def jax_env(task, n, **cfg):
     """One JAX env per task and config (the JAX cheetah settles its bank
-    of 256 states when it is made: ~7 s on a CPU)."""
-    return envpool_tpu.make_spec(task, num_envs=n, seed=3, **cfg).env
+    of 256 states when it is made: ~7 s on a CPU).  Made without its
+    ``EnvSpec``, whose shapes trace the env's obs once more (~7-19 s for the
+    dog)."""
+    return jax_registry._env(task, num_envs=n, seed=3, **cfg)
 
 
 class DmcPair:
@@ -332,19 +349,27 @@ def test_ported_ids():
         "FingerTurnHard-v1", "QuadrupedWalk-v1", "QuadrupedRun-v1", "QuadrupedEscape-v1",
         "QuadrupedFetch-v1", "ManipulatorBringBall-v1", "ManipulatorBringPeg-v1",
         "ManipulatorInsertBall-v1", "ManipulatorInsertPeg-v1", "StackerStack2-v1",
-        "StackerStack4-v1",
+        "StackerStack4-v1", "DogStand-v1", "DogWalk-v1", "DogTrot-v1", "DogRun-v1",
+        "DogFetch-v1",
     ])
-    assert set(PORTED) <= set(JAX_DMC) and len(JAX_DMC) == 51
+    assert PORTED == JAX_DMC and len(JAX_DMC) == 51
     assert set(PORTED) <= set(envpool_tpu_torch.list_all_envs())
 
 
-@pytest.mark.parametrize("task", sorted(set(JAX_DMC) - set(PORTED)))
+# Every dmc id is ported: the ids of the next families of ``bench.py``'s
+# sweep (procgen, vizdoom, minigrid, pgx, highway) are not.
+@pytest.mark.parametrize(
+    "task", ["MazeEasy-v0", "Basic-v1", "MiniGrid-Empty-8x8-v0", "TicTacToe-v1", "highway-v0"])
 def test_unported_id_raises(task):
+    assert task in jax_registry.specs
     with pytest.raises(ValueError, match="is not supported"):
         envpool_tpu_torch.make_spec(task, device="cpu")
 
 
-@pytest.mark.parametrize("task", PORTED)
+# The Dog ids' specs are held in tests/test_torch_mujoco_dmc_dog.py, beside
+# JAX's dog obs, which that file computes once (a JAX dog spec traces the
+# dog's obs: 7-19 s each).
+@pytest.mark.parametrize("task", [t for t in PORTED if not t.startswith("Dog")])
 def test_spec_matches_jax(task, monkeypatch):
     # A spec needs no settled states: skip the JAX cheetah's bank.
     monkeypatch.setattr(JaxCheetahEnv, "_build_settled_bank", lambda self: None)
@@ -567,7 +592,7 @@ def test_physics_dtype():
     in float64 and round once, and their state stays float32: swimmer15
     (a float32 env step lands past the one-step bar from float64 on most of
     its states), fish (8.9e5), manipulator (3.7e5-6.1e5: a body of 1e-6 kg
-    in the hand) and stacker (1.2e6)."""
+    in the hand), stacker (1.2e6) and dog (1.07e5, fetch's 5.29e5)."""
     from envpool_tpu_torch.envs.mujoco_dmc.base import COND_FLOAT64
     from envpool_tpu_torch.physics.dynamics import step
 
@@ -577,6 +602,7 @@ def test_physics_dtype():
         assert (env.physics_dtype is torch.float64) == (env.mass_condition() > COND_FLOAT64)
         wide[task] = env.physics_dtype
     assert [t for t, d in wide.items() if d is not None] == [
+        "DogFetch-v1", "DogRun-v1", "DogStand-v1", "DogTrot-v1", "DogWalk-v1",
         "FishSwim-v1", "FishUpright-v1", "ManipulatorBringBall-v1", "ManipulatorBringPeg-v1",
         "ManipulatorInsertBall-v1", "ManipulatorInsertPeg-v1", "StackerStack2-v1",
         "StackerStack4-v1", "SwimmerSwimmer15-v1"]
