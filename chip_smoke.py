@@ -2,10 +2,12 @@
 """Smoke test of envpool_tpu_torch on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It builds the port's two CUDA kernels at once (K1: fused max-pool +
+It builds the port's three CUDA kernels at once (K1: fused max-pool +
 INTER_AREA resize, ``envpool_tpu_torch/csrc/pool_resize.cu``; K2: one video
-frame of every 2600 machine, ``envpool_tpu_torch/csrc/machine_frame.cu``)
-and holds each against its plain PyTorch version on the card.  Then, for
+frame of every 2600 machine, ``envpool_tpu_torch/csrc/machine_frame.cu``;
+PGS: the constraint solver's projected Gauss-Seidel sweeps,
+``envpool_tpu_torch/csrc/pgs_solve.cu``) and holds each against its plain
+PyTorch version on the card.  Then, for
 PongLite-v5 at 2048 envs, Machine2600-v0 (the 6502+TIA emulator on the
 repository's hand-built pong cart) at 1024 envs, CartPole-v1 at 16384 envs
 and HalfCheetah-v4, Ant-v4 and Humanoid-v4 (the rigid-body physics, the
@@ -23,7 +25,12 @@ other Gym-MuJoCo id a short card-vs-CPU check at 256 envs (1024 with
 a free base), every other dm_control id one at 256 envs (among them
 the limited spatial tendon of ball_in_cup and the body-body contact pairs
 of finger, quadruped fetch, manipulator and stacker), and the other four
-Dog ids one at 32 envs.  It also times K2
+Dog ids one at 32 envs.  Then Ant-v4 with ``contact_solver="mujoco"`` at
+8192 envs (the PGS kernel's path; card vs CPU at 1024), CheetahRun-v1 and
+SwimmerSwimmer15-v1 in solver mode at 256, CheetahRun-v1 ``from_pixels``
+at 4096 envs (its frames card vs CPU by the frame rule), and the engine's
+remaining surface on the card: ``render()``, ``save_state`` /
+``load_state``, ``record_dir`` and two wrappers.  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
 holds it to its chain bound: each frame's most emulated instructions on
 one machine times one dependent shared-memory load, measured on the card.
@@ -110,6 +117,21 @@ DMC_SPREAD = ("HumanoidCMUStand-v1", "HumanoidCMUWalk-v1", "HumanoidCMURun-v1",
 # is not finite.
 DIVERGING_CLASSES = ("ManipulatorEnv", "StackerEnv")
 DIVERGE_SHARE = 0.25
+
+
+# The constraint solver's main path: Ant-v4 at N_ANT envs (bench.py:120),
+# its card-vs-CPU phase at N_SOLVER_VS (the CPU runs the plain sweeps, a
+# Python loop over the rows), a rollout of SOLVER_ROLLOUT steps, and short
+# checks of SOLVER_SHORT in solver mode (SwimmerSwimmer15-v1 steps in
+# float64: the kernel's double instance on a path).
+N_SOLVER_VS = 1024
+SOLVER_ROLLOUT = 64
+SOLVER_SHORT = ("CheetahRun-v1", "SwimmerSwimmer15-v1")
+# from_pixels: CheetahRun-v1 at N_DMC envs, 84x84, 3 frames; a rollout of
+# PIXEL_ROLLOUT steps.  Frames card vs CPU by the frame rule, at most
+# MAX_PIXEL_DIFFER of the pixels differing (tests/test_torch_pixels.py).
+PIXEL_ROLLOUT = 64
+MAX_PIXEL_DIFFER = 1e-3
 
 
 # The script's time limit is fixed while it grows: the short checks of the
@@ -747,21 +769,21 @@ def _obs_shapes(pool, n: int) -> dict:
 
 
 def phase_float_adapters(device: str, task: str, n: int, episode: int,
-                         dm_episode: bool = False) -> dict:
+                         dm_episode: bool = False, **make_kwargs) -> dict:
     """A classic-control or physics task through the gymnasium pool made
     with no ``device`` argument (which must land on ``device``), a dm pool
     and the functional handle; the gymnasium pool truncates at ``episode``
     steps.  With ``dm_episode``, the dm pool runs an episode of ``episode``
     steps too: discount 1.0 on every step, LAST at the truncation and FIRST
-    after it (dm_control's time-limit-only episodes).  Returns what the
-    gymnasium run saw."""
+    after it (dm_control's time-limit-only episodes).  ``make_kwargs`` go
+    to every pool.  Returns what the gymnasium run saw."""
     import torch
 
     import envpool_tpu_torch
 
     pool = envpool_tpu_torch.make(
         task, env_type="gymnasium", num_envs=n, seed=SEED, numpy_output=False,
-        max_episode_steps=episode,
+        max_episode_steps=episode, **make_kwargs,
     )
     _check(pool.pool_state.key.device.type == device, "default device is not the card")
     sample = _sampler(_spec(pool), n, device)
@@ -794,7 +816,7 @@ def phase_float_adapters(device: str, task: str, n: int, episode: int,
     print(f"{task} gymnasium (no device argument: {device}): obs {got}; "
           f"{episode + 2} random steps: {seen}, reward sum {reward:.6g}")
 
-    dm = envpool_tpu_torch.make_dm(task, num_envs=n, seed=SEED, device=device,
+    dm = envpool_tpu_torch.make_dm(task, num_envs=n, seed=SEED, device=device, **make_kwargs,
                                    **({"max_episode_steps": episode} if dm_episode else {}))
     ts = dm.reset()
     _check(bool((ts.step_type == 0).all()), "dm reset step_type")
@@ -1396,6 +1418,137 @@ def section_machine(device: str, card: str) -> tuple[dict, int]:
     return k2_stats, k2_launches
 
 
+# ---------------------------------------------------------------------------
+# The constraint solver's PGS kernel
+# ---------------------------------------------------------------------------
+
+# Kernel against plain: float32 within 1e-4 · (1 + |plain|) (40 sweeps of
+# dot products summed in another order: float32 rounding of forces up to
+# ~1e4, as tests/test_torch_solver.py holds the plain sweeps to JAX's),
+# float64 within 1e-10 · (1 + |plain|).
+PGS_TOL = {"float32": 1e-4, "float64": 1e-10}
+PGS_ITERS = 40
+
+
+def _random_pgs(n: int, nr: int, dtype, device, share: float):
+    """``n`` random regularised SPD systems of ``nr`` rows, about ``share``
+    of the rows active: ``(A, b, R, diag, active)``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + nr)
+    J = torch.randn(n, nr, max(2, nr // 3), generator=gen, device=device,
+                    dtype=torch.float64)
+    A = J @ J.transpose(1, 2)
+    b = torch.randn(n, nr, generator=gen, device=device, dtype=torch.float64)
+    R = 0.1 + torch.rand(n, nr, generator=gen, device=device, dtype=torch.float64)
+    diag = torch.diagonal(A, dim1=1, dim2=2) + R
+    active = torch.rand(n, nr, generator=gen, device=device) < share
+    return [t.to(dtype) for t in (A, b, R, diag)] + [active]
+
+
+def _ant_pgs(device: str, n: int, steps: int):
+    """The PGS inputs of Ant-v4's solver at ``n`` envs on ``device``: the
+    first RK4 stage of the state ``steps`` random env steps after a reset
+    (the solver at the model's timestep, as ``forward`` calls it)."""
+    import torch
+
+    from envpool_tpu_torch.physics import dynamics, solver
+
+    pool = _pool(device, "Ant-v4", n, contact_solver="mujoco")
+    eng, env = pool.engine, pool.engine.env
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    sample = _sampler(_spec(pool), n, device)
+    ps, _ = eng.reset(pool.pool_state, torch.ones(n, dtype=torch.bool, device=device))
+    for _ in range(steps):
+        ps, _ = eng.step(ps, {"action": sample(gen)})
+    q, qd = ps.env_state["qpos"], ps.env_state["qvel"]
+    with dynamics.full_fp32():
+        M, tau, _, k = dynamics._smooth(env.model, q, qd, sample(gen), env.contact)
+        return solver.pgs_system(env.model, k, q, qd, M, tau, env.model.timestep)[:5]
+
+
+def _pgs_err(got, want) -> float:
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def phase_pgs_vs_plain(device: str, n_ant: int) -> dict:
+    """The PGS kernel against its plain version on the card: random SPD
+    systems in float32 and float64, at Ant's 108 rows and at 400 rows with
+    half of them active (past what a warp keeps in shared memory, so A is
+    read from device memory), and Ant-v4's own rows at ``n_ant`` envs;
+    its time there against the plain version's and its chain bound (the
+    most active rows of one env x 40 sweeps x one dependent warp-wide
+    reduction, measured here); returns the kernel's record."""
+    import torch
+
+    from envpool_tpu_torch.ops.cuda_pgs import CACHED_ROWS, pgs_plain, pgs_solve
+
+    max_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        for nr, share in ((108, 0.3), (400, 0.5)):
+            sys_ = _random_pgs(256, nr, dtype, device, share)
+            got = pgs_solve(*sys_, PGS_ITERS)
+            want = pgs_plain(*sys_, PGS_ITERS)
+            torch.cuda.synchronize()
+            err = _pgs_err(got, want)
+            most = int(sys_[4].sum(1).max())
+            least = int(sys_[4].sum(1).min())
+            print(f"PGS vs plain [{name}, 256 random systems of {nr} rows, {least}-{most} "
+                  f"active, shared memory holds {CACHED_ROWS[dtype]}]: max |kernel - plain| "
+                  f"/ (1 + |plain|) = {err:.3g} (tolerance {PGS_TOL[name]:g})")
+            _check(err <= PGS_TOL[name], f"the PGS kernel disagrees with plain ({name}, {nr} rows)")
+            _check(bool((got.masked_fill(sys_[4], 0) == 0).all()), "inactive rows got a force")
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+    sys_ = _ant_pgs(device, n_ant, 10)
+    got = pgs_solve(*sys_, PGS_ITERS)
+    want = pgs_plain(*sys_, PGS_ITERS)
+    torch.cuda.synchronize()
+    err = _pgs_err(got, want)
+    max_err = max(max_err, err)
+    na = sys_[4].sum(1)
+    print(f"PGS vs plain [Ant-v4's rows at {n_ant} envs, 108 rows, {int(na.min())}-"
+          f"{int(na.max())} active, mean {float(na.float().mean()):.2f}]: max |kernel - "
+          f"plain| / (1 + |plain|) = {err:.3g}; largest force {float(want.abs().max()):.4g}")
+    _check(err <= PGS_TOL["float32"], "the PGS kernel disagrees with plain on Ant's rows")
+    before = pgs_solve.launches
+    ms = _time_ms(lambda: pgs_solve(*sys_, PGS_ITERS))
+    pgs_solve.launches = before
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    pgs_plain(*sys_, PGS_ITERS)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    iters = 1 << 16
+    pgs_solve.reduce_chase(iters)
+    start.record()
+    out = pgs_solve.reduce_chase(iters)
+    end.record()
+    torch.cuda.synchronize()
+    red_ns = start.elapsed_time(end) * 1e6 / iters
+    red_clk = int(out[0]) / iters
+    chain_ms = int(na.max()) * PGS_ITERS * red_ns * 1e-6
+    nr = sys_[1].shape[1]
+    nbytes = int((na.long() ** 2).sum()) * 4 + n_ant * nr * (3 * 4 + 1 + 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"dependent warp-wide float32 sum (one warp's chain): {red_clk:.1f} SM clocks = "
+          f"{red_ns:.2f} ns")
+    print(f"PGS timing at Ant's rows, {n_ant} envs: kernel {ms:.4f} ms, plain {plain_ms:.1f} "
+          f"ms; bounds: chain {int(na.max())} rows x {PGS_ITERS} sweeps x {red_ns:.2f} ns = "
+          f"{chain_ms:.5f} ms, bytes {nbytes / 1e6:.2f} MB / 3.35 TB/s = {bytes_ms:.5f} ms; "
+          f"the kernel reaches {max(chain_ms, bytes_ms) / ms:.4f} of its bound")
+    return {
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(chain_ms, bytes_ms),
+        "bound_by": "operations" if chain_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }
+
+
 def phase_bank_reset(device: str, task: str, n: int) -> None:
     """``n`` resets of ``task`` on the card and on the CPU from one seed:
     the same states bit for bit (CheetahRun gathers rows of its committed
@@ -1449,28 +1602,34 @@ def phase_drop_reset(device: str, task: str, n: int) -> None:
 
 
 def phase_physics(device: str, card: str, task: str, n: int, episode: int,
-                  tol: float, rollout_steps: int, vs_n: int | None = None) -> None:
+                  tol: float, rollout_steps: int, vs_n: int | None = None,
+                  **make_kwargs) -> dict:
     """CartPole-v1, FrozenLake8x8-v1 or a physics task at ``n`` envs
     through every entry point, card vs CPU (at ``vs_n`` envs, where the
     CPU's side would not fit the script's time at ``n``), a profile, for the physics the batched SPD solve at the
-    model's ``nv`` and dtype, and a functional rollout; none of it may
-    launch K1 or K2."""
+    model's ``nv`` and dtype, and a functional rollout, each with
+    ``make_kwargs``; none of it may launch K1 or K2, and only the
+    constraint solver (``contact_solver="mujoco"``) the PGS kernel.
+    Returns the profile's numbers and the PGS kernel's launches."""
     import envpool_tpu_torch
     from envpool_tpu_torch.envs.physics_env import PhysicsEnv
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
+    from envpool_tpu_torch.ops.cuda_pgs import pgs_solve
 
     t0 = time.perf_counter()
     machine_frame.launches = 0
     fused_pool_resize.launches = 0
-    env = envpool_tpu_torch.make_spec(task, device="cpu").env
+    pgs_solve.launches = 0
+    env = envpool_tpu_torch.make_spec(task, device="cpu", **make_kwargs).env
     physics = isinstance(env, PhysicsEnv)
     parts = {}
 
     def lap(name):
         parts[name] = time.perf_counter() - t0 - sum(parts.values())
 
-    seen = phase_float_adapters(device, task, n, episode, dm_episode=_is_dmc(task))
+    seen = phase_float_adapters(device, task, n, episode, dm_episode=_is_dmc(task),
+                                **make_kwargs)
     _check(task not in ("CartPole-v1", "FrozenLake8x8-v1") or seen["terminated"] > 0,
            f"no {task} termination")
     _check(task not in ("HalfCheetah-v4", "CheetahRun-v1", "DogRun-v1")
@@ -1482,28 +1641,289 @@ def phase_physics(device: str, card: str, task: str, n: int, episode: int,
         phase_drop_reset(device, task, n)
     lap("adapters")
     vs = phase_float_card_vs_cpu(device, task, vs_n or n, warmup=30, steps=3, tol=tol,
-                                 spread=_spread(task))
+                                 spread=_spread(task), **make_kwargs)
     check_shares(task, vs)
     if physics:
         check_f64_parity(f"{task} state", vs["card"], vs["cpu"], tol)
         check_f64_parity(f"{task} obs", vs["card_obs"], vs["cpu_obs"], tol)
     lap("card vs CPU")
-    prof = phase_profile(device, task, n, PROFILE_STEPS, warmup=2)
+    prof = phase_profile(device, task, n, PROFILE_STEPS, warmup=2, **make_kwargs)
     if physics:
         phase_spd_solve(device, n, env.model.nv, env.physics_dtype)
     lap("profile")
-    task_steps, _ = phase_throughput(device, task, n, rollout_steps)
+    task_steps, _ = phase_throughput(device, task, n, rollout_steps, **make_kwargs)
     lap("rollout")
     _check(fused_pool_resize.launches == machine_frame.launches == 0,
            f"{task} launched K1 or K2")
+    solver = make_kwargs.get("contact_solver") == "mujoco"
+    _check((pgs_solve.launches > 0) == solver,
+           f"{task}{_kw(make_kwargs)} launched the PGS kernel {pgs_solve.launches} times")
     print(
-        f"{task} at {n} envs on {card}: functional rollout of {rollout_steps} "
+        f"{task}{_kw(make_kwargs)} at {n} envs on {card}: functional rollout of {rollout_steps} "
         f"steps {task_steps:,.0f} env-steps/s; engine step {prof['launches']:.0f} "
         f"kernel launches, {prof['device_ms']:.3f} device ms, idle share "
-        f"{prof['idle']:.3f}; K1 and K2 launched 0 times "
-        f"({time.perf_counter() - t0:.1f} s: "
+        f"{prof['idle']:.3f}; K1 and K2 launched 0 times, the PGS kernel "
+        f"{pgs_solve.launches} ({time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")"
     )
+    return dict(prof, pgs_launches=pgs_solve.launches, steps_per_s=task_steps)
+
+
+def _kw(make_kwargs: dict) -> str:
+    """`` (key=value, ...)`` of a phase's make arguments, or nothing."""
+    return f" ({', '.join(f'{k}={v!r}' for k, v in make_kwargs.items())})" if make_kwargs else ""
+
+
+def section_solver(device: str, card: str) -> tuple[dict, int]:
+    """The PGS kernel against its plain version and timed, then Ant-v4 with
+    the constraint solver at ``N_ANT`` envs through every phase (card vs
+    CPU at ``N_SOLVER_VS``), and short checks of CheetahRun-v1 and of a
+    float64 model in solver mode; returns the kernel's record and its
+    launches on the Ant-v4 path."""
+    from envpool_tpu_torch.ops.cuda_pgs import pgs_solve
+
+    stats = phase_pgs_vs_plain(device, N_ANT)
+    prof = phase_physics(device, card, "Ant-v4", N_ANT, 10, PHYSICS_TOL, SOLVER_ROLLOUT,
+                         vs_n=N_SOLVER_VS, contact_solver="mujoco")
+    launches = prof["pgs_launches"]
+    # one solve per substep (Euler, Ant-v4's registered integrator) or per
+    # RK4 stage, none in the reset branch
+    pool = _pool(device, "Ant-v4", N_SHORT, contact_solver="mujoco")
+    env = pool.engine.env
+    want = env.frame_skip * env.substeps * (4 if env.model.integrator == 1 else 1)
+    ps, _ = pool.engine.reset(pool.pool_state, pool.pool_state.autoreset)
+    before = pgs_solve.launches
+    pool.engine.step(ps, pool.engine.zero_action())
+    per_step = pgs_solve.launches - before
+    _check(per_step == want, f"PGS launches per Ant-v4 env step {per_step}, expected {want}")
+    print(f"PGS kernel launches on the Ant-v4 solver path: {launches} ({per_step} per env "
+          f"step: one per substep of frame skip {env.frame_skip}); profile: "
+          f"{prof['launches']:.0f} launches, "
+          f"{prof['device_ms']:.3f} device ms, idle {prof['idle']:.3f} per env step; rollout "
+          f"{prof['steps_per_s']:,.0f} env-steps/s on {card}")
+    phase_short_checks(device, "dm_control solver", list(SOLVER_SHORT),
+                       contact_solver="mujoco")
+    return stats, launches
+
+
+def phase_pixels_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: int) -> None:
+    """After ``warmup`` random steps of ``task`` from pixels on the card,
+    ``steps`` engine steps, each checked: the frame stack rolled (or, for an
+    env that reset, holds its first frame in every slot), and the newest
+    frame equals the CPU's render of the card's new state under the frame
+    rule (``ops.rasterize.frame_rule_violations``: pixels that float
+    rounding decides, marked by a float64 render, may differ, at most
+    ``MAX_PIXEL_DIFFER`` of them)."""
+    import torch
+
+    from envpool_tpu_torch.ops import rasterize
+
+    # episodes of warmup + 1 steps: the last checked step resets every env
+    pool = _pool(device, task, n, from_pixels=True, max_episode_steps=warmup + 1)
+    eng, env = pool.engine, pool.engine.env
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    sample = _sampler(_spec(pool), n, device)
+    ps, _ = eng.reset(pool.pool_state, torch.ones(n, dtype=torch.bool, device=device))
+    for _ in range(warmup):
+        ps, _ = eng.step(ps, {"action": sample(gen)})
+    totals = dict.fromkeys(("pixels", "differ", "at_edge", "at_trunc", "violations"), 0)
+    worst, resets, t0 = 0, 0, time.perf_counter()
+    for t in range(steps):
+        before = ps.env_state["frames"]
+        ps, ts = eng.step(ps, {"action": sample(gen)})
+        frames = ps.env_state["frames"]
+        _check(torch.equal(ts["obs"], frames), "the obs is not the frame stack")
+        first = ts["step_type"] == 0
+        resets += int(first.sum())
+        rolled = torch.where(first[:, None, None, None], frames[:, -1:].expand_as(frames),
+                             torch.cat([before[:, 1:], frames[:, -1:]], 1))
+        _check(torch.equal(frames, rolled), f"{task}: the frame stack did not roll at step {t}")
+        qpos = ps.env_state["inner"]["qpos"]
+        want = env.frame(qpos.cpu())  # the CPU's render
+        edge, trunc = (x.cpu() for x in rasterize.rounding_pixels(
+            env.inner.model, qpos, env.height, env.width, env.track_body, env.view_size))
+        v = rasterize.frame_rule_violations(frames[:, -1].cpu(), want, edge, trunc)
+        for k in totals:
+            totals[k] += v[k]
+        worst = max(worst, v["max_diff"])
+        _check(v["violations"] == 0, f"{task}: frames break the frame rule at step {t}: {v}")
+    _check(totals["differ"] <= MAX_PIXEL_DIFFER * totals["pixels"],
+           f"{task}: {totals['differ']} of {totals['pixels']} pixels differ")
+    _check(resets > 0, f"{task}: no reset among the checked steps")
+    print(f"{task} from pixels card vs CPU, {n} envs x {steps} steps (after {warmup} warm-up "
+          f"steps; {resets} resets): the newest frame against the CPU's render of the card's "
+          f"state: {totals['differ']} of {totals['pixels']} pixels differ ({totals['at_edge']} "
+          f"at an edge, {totals['at_trunc']} at a truncation, largest {worst}), 0 against the "
+          f"rule; the stack rolled ({time.perf_counter() - t0:.1f} s)")
+
+
+def section_pixels(device: str, card: str) -> dict:
+    """CheetahRun-v1 from pixels at ``N_DMC`` envs through every entry
+    point, card vs CPU on the frames, a profile and a rollout; none of it
+    may launch K1, K2 or the PGS kernel.  Returns the profile's numbers."""
+    from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+    from envpool_tpu_torch.ops.cuda_pgs import pgs_solve
+
+    t0 = time.perf_counter()
+    task = "CheetahRun-v1"
+    machine_frame.launches = fused_pool_resize.launches = pgs_solve.launches = 0
+    seen = phase_float_adapters(device, task, N_DMC, 10, dm_episode=True, from_pixels=True)
+    _check((seen["terminated"], seen["truncated"]) == (0, N_DMC),
+           f"{task} ends its episodes by truncation alone")
+    t1 = time.perf_counter()
+    phase_pixels_card_vs_cpu(device, task, N_DMC, warmup=8, steps=2)
+    t2 = time.perf_counter()
+    prof = phase_profile(device, task, N_DMC, PROFILE_STEPS, warmup=2, from_pixels=True)
+    t3 = time.perf_counter()
+    steps_per_s, _ = phase_throughput(device, task, N_DMC, PIXEL_ROLLOUT, from_pixels=True)
+    _check(fused_pool_resize.launches == machine_frame.launches == pgs_solve.launches == 0,
+           f"{task} from pixels launched K1, K2 or the PGS kernel")
+    print(f"{task} from pixels at {N_DMC} envs on {card}: functional rollout of "
+          f"{PIXEL_ROLLOUT} steps {steps_per_s:,.0f} env-steps/s; engine step "
+          f"{prof['launches']:.0f} kernel launches, {prof['device_ms']:.3f} device ms, idle "
+          f"share {prof['idle']:.3f}; K1, K2 and the PGS kernel launched 0 times "
+          f"({time.perf_counter() - t0:.1f} s: adapters {t1 - t0:.1f}, card vs CPU "
+          f"{t2 - t1:.1f}, profile {t3 - t2:.1f}, rollout {time.perf_counter() - t3:.1f})")
+    return dict(prof, steps_per_s=steps_per_s)
+
+
+def _pole_outline(states, tol: float = 1e-3):
+    """``[N, 400, 600]``: the pixels of CartPole frames that lie within
+    ``tol`` pixel of the pole's outline, in float64 (where a float32 cos or
+    sin an ulp apart may paint either side)."""
+    import torch
+
+    x, theta = states[:, 0, None, None].double(), states[:, 2, None, None].double()
+    cart_x = 300 + x * (600 / (2 * 2.4 * 2))
+    rows = torch.arange(400, dtype=torch.float64)[:, None]
+    cols = torch.arange(600, dtype=torch.float64)[None, :]
+    dx, dy = cols - cart_x, 300.0 - 15 - rows
+    along = dx * torch.sin(theta) + dy * torch.cos(theta)
+    across = dx * torch.cos(theta) - dy * torch.sin(theta)
+    return (along.abs() <= tol) | ((along - 100).abs() <= tol) | ((across.abs() - 5).abs() <= tol)
+
+
+def phase_surface_checks(device: str) -> None:
+    """The engine's remaining surface on the card, a few seconds each:
+    ``render()`` of CartPole-v1 and PongLite-v5 equal to the CPU's render
+    of the same states (CartPole's except within 1e-3 pixel of the pole's
+    outline); a ``save_state`` / step / ``load_state`` / step round trip
+    bit for bit (CartPole-v1, CheetahRun-v1 from pixels); ``record_dir``
+    files on the card; and FrameStack and NormalizeObs over CartPole-v1,
+    card against CPU from the same states."""
+    import glob
+    import os
+    import tempfile
+
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch import interop, wrappers
+    from envpool_tpu_torch.core.engine import Engine, PoolState, _tree_map
+    from envpool_tpu_torch.envs.classic_control import CartPoleEnv
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    for task, n, steps in (("CartPole-v1", 64, 5), ("PongLite-v5", 8, 20)):
+        card = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=n, seed=SEED,
+                                      device=device)
+        cpu = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=n, seed=SEED,
+                                     device="cpu")
+        card.reset()
+        sample = _sampler(_spec(card), n, "cpu")
+        for _ in range(steps):
+            card.step(sample(gen).numpy())
+        cpu._state = interop.pool_state_from_numpy(interop.pool_state_to_numpy(
+            card.pool_state), "cpu")
+        got, want = card.render(), cpu.render()
+        differ = (got != want).any(-1)
+        if task.startswith("CartPole"):
+            outline = _pole_outline(cpu.pool_state.env_state).numpy()
+            _check(not (differ & ~outline).any(), f"{task}: card and CPU frames differ away "
+                   "from the pole's outline")
+        else:
+            _check(not differ.any(), f"{task}: card and CPU frames differ")
+        print(f"{task} render() on the card: {got.shape} {got.dtype}, equal to the CPU's "
+              f"render of the same states but {int(differ.sum())} pixels")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    for task, n, kwargs in (("CartPole-v1", 256, {}),
+                            ("CheetahRun-v1", 64, {"from_pixels": True})):
+        pool = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=n, seed=SEED,
+                                      device=device, numpy_output=False, **kwargs)
+        pool.reset()
+        sample = _sampler(_spec(pool), n, device)
+        acts = [sample(torch.Generator(device=device).manual_seed(SEED + i)) for i in range(3)]
+        pool.step(acts[0])
+        path = os.path.join(tmp, f"{task}.npz")
+        pool.save_state(path)
+        first = [pool.step(a) for a in acts[1:]]
+        pool.load_state(path)
+        again = [pool.step(a) for a in acts[1:]]
+        same = all(torch.equal(x, y) for f, g in zip(first, again) for x, y in zip(f[:4], g[:4]))
+        _check(same, f"{task}{_kw(kwargs)}: the steps after load_state differ")
+        print(f"{task}{_kw(kwargs)} at {n} envs: save_state, 2 steps, load_state, the same 2 "
+              f"steps: equal bit for bit")
+    rec = os.path.join(tmp, "record")
+    pool = envpool_tpu_torch.make("CartPole-v1", env_type="gymnasium", num_envs=256, seed=SEED,
+                                  device=device, max_episode_steps=10, record_dir=rec)
+    pool.reset()
+    dones = 0
+    for _ in range(25):
+        *_, term, trunc, _ = pool.step(np.random.default_rng(dones).integers(0, 2, 256)
+                                       .astype(np.int32))
+        dones += int((term | trunc).sum())
+    files = glob.glob(os.path.join(rec, "env_*_*.npz"))
+    _check(len(files) == dones > 0, f"record_dir: {len(files)} files for {dones} episodes")
+    with np.load(sorted(files)[0]) as z:
+        _check(z["action"].ndim == 1 and 0 < len(z["action"]) <= 10, "a recorded episode")
+    print(f"record_dir on the card: {len(files)} episode files for {dones} finished episodes")
+    for name, wrap in (("FrameStack", lambda e: wrappers.FrameStack(e, 4)),
+                       ("NormalizeObs", wrappers.NormalizeObs)):
+        n = 1024
+        card = Engine(wrap(CartPoleEnv.from_config(num_envs=n, seed=SEED, device=device,
+                                                   max_episode_steps=20)))
+        cpu = Engine(wrap(CartPoleEnv.from_config(num_envs=n, seed=SEED, device="cpu",
+                                                  max_episode_steps=20)))
+        ps, _ = card.reset(card.init(), torch.ones(n, dtype=torch.bool, device=device))
+        worst, flips = 0.0, 0
+        for t in range(15):
+            act = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32)
+            ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), f) for f in (
+                ps.env_state, ps.key, ps.elapsed, ps.autoreset, ps.full_reset)))
+            ps, got = card.step(ps, {"action": act.to(device)})
+            if t < 12:
+                continue
+            cps, want = cpu.step(ps_cpu, {"action": act})
+            # Envs whose new CartPole state lies within the tolerance of a
+            # termination threshold may end on one device only.
+            keep = ~(_cartpole_margin({"obs": cps.env_state["inner"]}) < CARTPOLE_TOL)
+            flips += int((~keep).sum())
+            limit = {k: CARTPOLE_TOL for k in want}
+            if name == "NormalizeObs":
+                # The normalisation divides the state's float32 rounding
+                # by the running standard deviation.
+                stats = cps.env_state["stats"]
+                var = stats["m2"] / torch.clamp_min(stats["count"] - 1, 1)[:, None]
+                limit["obs"] = (4 * CARTPOLE_TOL * (1 + cps.env_state["inner"].abs())
+                                / torch.sqrt(var + 1e-8))
+            for k, w in want.items():
+                g = got[k].cpu()
+                if w.is_floating_point():
+                    err = ((g - w).abs() / (1 + w.abs())).reshape(n, -1)[keep]
+                    ratio = float((err / torch.as_tensor(limit[k]).reshape(n, -1)[keep]
+                                   if k == "obs" and name == "NormalizeObs"
+                                   else err / limit[k]).max())
+                    worst = max(worst, ratio)
+                    _check(ratio <= 1, f"{name}: {k} past its tolerance ({ratio:.3g} of it) "
+                           f"at step {t}")
+                else:
+                    _check(torch.equal(g[keep], w[keep]), f"{name}: {k} differs at step {t}")
+        print(f"{name} over CartPole-v1, {n} envs x 3 steps card vs CPU from the same states: "
+              f"largest error {worst:.3g} of its tolerance ({CARTPOLE_TOL:g} · (1 + |cpu|)"
+              + ("; the normalised obs 4x that over the running std" if name == "NormalizeObs"
+                 else "") + f"); {flips} envs at a termination threshold left out")
+    print(f"surface checks passed ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_exact_checks(device: str, checks: list[tuple[str, dict]]) -> None:
@@ -1531,20 +1951,25 @@ def phase_exact_checks(device: str, checks: list[tuple[str, dict]]) -> None:
 
 
 def phase_short_checks(device: str, family: str, tasks: list[str],
-                       share_warmup: bool = False, n: int | None = None) -> None:
+                       share_warmup: bool = False, n: int | None = None,
+                       **make_kwargs) -> None:
     """A short card-vs-CPU check of each id of a physics family, as deep as
     :func:`_short_depth` says, at ``n`` envs (by default ``N_SHORT``,
     ``N_SHORT_FREE`` for the Gym-MuJoCo ids with a free base), with
     ``share_warmup`` one warm-up for ids that step alike
-    (:func:`phase_float_card_vs_cpu`); none may launch K1 or K2."""
+    (:func:`phase_float_card_vs_cpu`), ``make_kwargs`` to every pool;
+    none may launch K1 or K2, and only the constraint solver's
+    (``contact_solver="mujoco"``) the PGS kernel."""
     import torch
 
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
+    from envpool_tpu_torch.ops.cuda_pgs import pgs_solve
 
     t0 = time.perf_counter()
     machine_frame.launches = 0
     fused_pool_resize.launches = 0
+    pgs_solve.launches = 0
     checks = []
     warm = {} if share_warmup else None
     width = n
@@ -1554,7 +1979,7 @@ def phase_short_checks(device: str, family: str, tasks: list[str],
         steps, warmup = _short_depth(task)
         checks.append(phase_float_card_vs_cpu(device, task, n, warmup=warmup, steps=steps,
                                               tol=PHYSICS_TOL, spread=_spread(task),
-                                              warm=warm))
+                                              warm=warm, **make_kwargs))
         check_shares(task, checks[-1])
         print(f"  ({task}: {time.perf_counter() - t_task:.1f} s)")
     for what in ("", "_obs"):
@@ -1563,8 +1988,12 @@ def phase_short_checks(device: str, family: str, tasks: list[str],
                          PHYSICS_TOL)
     _check(fused_pool_resize.launches == machine_frame.launches == 0,
            f"a {family} id launched K1 or K2")
-    print(f"short card-vs-CPU checks of {len(tasks)} {family} ids passed; K1 and K2 "
-          f"launched 0 times ({time.perf_counter() - t0:.1f} s)")
+    solver = make_kwargs.get("contact_solver") == "mujoco"
+    _check((pgs_solve.launches > 0) == solver,
+           f"the {family} ids launched the PGS kernel {pgs_solve.launches} times")
+    print(f"short card-vs-CPU checks of {len(tasks)} {family} ids{_kw(make_kwargs)} passed; K1 "
+          f"and K2 launched 0 times, the PGS kernel {pgs_solve.launches} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
 def _short_depth(task: str) -> tuple[int, int]:
@@ -1602,6 +2031,7 @@ def main() -> int:
     from envpool_tpu_torch.core.registry import registry
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
+    from envpool_tpu_torch.ops.cuda_pgs import pgs_solve
 
     t_start = time.perf_counter()
     device = "cuda"
@@ -1625,11 +2055,12 @@ def main() -> int:
              if path.endswith(".toy_text") and t != "FrozenLake8x8-v1"]
     exact += [("Dummy-v0", {"max_episode_steps": 8, "max_num_players": p}) for p in (1, 2)]
 
-    # Build both kernels at once (one nvcc each).
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(k.build) for k in (fused_pool_resize, machine_frame)]
-        k1_build, k2_build = (b.result() for b in builds)
-    print(f"K1 build: {k1_build:.1f} s; K2 build: {k2_build:.1f} s (in parallel)")
+    # Build the three kernels at once (one nvcc each).
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(k.build) for k in (fused_pool_resize, machine_frame, pgs_solve)]
+        k1_build, k2_build, pgs_build = (b.result() for b in builds)
+    print(f"K1 build: {k1_build:.1f} s; K2 build: {k2_build:.1f} s; PGS build: "
+          f"{pgs_build:.1f} s (in parallel)")
 
     stats, k1_launches = section_pong(device, card)
     print(f"[{time.perf_counter() - t_start:.1f} s] PongLite-v5 and K1 done")
@@ -1650,7 +2081,13 @@ def main() -> int:
         phase_physics(device, card, task, n, episode, tol, rollout_steps)
     phase_physics(device, card, "DogRun-v1", N_DMC, 4, PHYSICS_TOL, 8, vs_n=N_DOG_VS)
     print(f"[{time.perf_counter() - t_start:.1f} s] main paths done")
+    # -- the constraint solver (the PGS kernel) and from_pixels ------------
+    pgs_stats, pgs_launches = section_solver(device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] the solver and the PGS kernel done")
+    section_pixels(device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] from_pixels done")
     phase_exact_checks(device, exact)
+    phase_surface_checks(device)
 
     # -- every other physics id: a short card-vs-CPU check ----------------
     phase_short_checks(device, "Gym-MuJoCo", [
@@ -1677,6 +2114,14 @@ def main() -> int:
             "replaces": "envpool_tpu/envs/atari/machine_pallas.py:33",
             "launches": k2_launches,
             **k2_stats,
+        },
+        {
+            "name": "PGS",
+            "route": "cuda",
+            "source": "envpool_tpu_torch/csrc/pgs_solve.cu",
+            "replaces": "envpool_tpu/physics/solver.py:187",
+            "launches": pgs_launches,
+            **pgs_stats,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -8,8 +8,10 @@ scatter over the addressed rows).  CUDA work is queued asynchronously, so
 ``send`` returns once the step is enqueued and ``recv`` waits for the
 oldest one when it copies to numpy.
 
-Not ported yet: ``render``, ``save_state`` and ``load_state`` raise
-``NotImplementedError``.
+Also as in JAX: ``render`` (batched RGB frames of the env's
+``render_state``; ``render_mode="human"`` tiles them into one OpenCV
+window), ``save_state`` / ``load_state`` (an ``.npz`` of the pool state's
+leaves, checked on load) and ``record_dir`` (``adapters/record.py``).
 """
 
 from __future__ import annotations
@@ -20,11 +22,54 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..core.engine import Engine, TimeStepDict
+from ..core.engine import Engine, PoolState, TimeStepDict, _tree_map
 from ..core.env import TorchEnv
 from ..core.env_spec import EnvSpec
 
-__all__ = ["EnvPoolBase"]
+__all__ = ["EnvPoolBase", "tile_frames"]
+
+_POOL_FIELDS = ("env_state", "key", "elapsed", "autoreset", "full_reset")
+
+
+def tile_frames(frames: np.ndarray) -> np.ndarray:
+    """Tile ``[B, H, W, 3]`` frames into one near-square grid image.
+
+    The human-mode viewer shows the whole batch at once (the reference
+    limits human mode to a single env, ``envpool/python/envpool.py:289-293``
+    — the grid is the batched generalization).
+    """
+    frames = np.asarray(frames)
+    b, h, w, c = frames.shape
+    cols = int(np.ceil(np.sqrt(b)))
+    rows = int(np.ceil(b / cols))
+    grid = np.zeros((rows * h, cols * w, c), frames.dtype)
+    for i in range(b):
+        r, cidx = divmod(i, cols)
+        grid[r * h : (r + 1) * h, cidx * w : (cidx + 1) * w] = frames[i]
+    return grid
+
+
+def _flatten(ps: PoolState) -> tuple[list[torch.Tensor], str]:
+    """The pool state's leaves in a fixed order and a description of its
+    structure (dict keys nested, ``*`` for a leaf)."""
+    leaves: list[torch.Tensor] = []
+
+    def walk(tree) -> str:
+        if isinstance(tree, dict):
+            return "{" + ", ".join(f"{k!r}: {walk(v)}" for k, v in tree.items()) + "}"
+        leaves.append(tree)
+        return "*"
+
+    desc = ", ".join(f"{f}={walk(getattr(ps, f))}" for f in _POOL_FIELDS)
+    return leaves, f"PoolState({desc})"
+
+
+def _numpy_dtype(t: torch.Tensor) -> np.dtype:
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class EnvPoolBase:
@@ -44,6 +89,16 @@ class EnvPoolBase:
         self._action_spec = self._env.action_spec()
         self._action_keys = list(self._action_spec.keys())
         self._state_keys = list(spec.state_array_spec.keys())
+        rec = str(
+            self._env.config.get("record_dir")
+            or self._env.config.get("lmp_save_dir")
+            or ""
+        )
+        self._recorder = None
+        if rec:
+            from .record import EpisodeRecorder
+
+            self._recorder = EpisodeRecorder(rec, self.num_envs, self._env.seeds())
 
     # -- properties mirroring EnvPoolMixin ---------------------------------
 
@@ -134,6 +189,11 @@ class EnvPoolBase:
         """Enqueue one (partial) step; non-blocking on the card."""
         tree, env_id = self._from(action, env_id)
         self._check_action(tree, env_id)
+        if self._recorder is not None:
+            self._recorder.on_send(
+                self.all_env_ids if env_id is None else _host(env_id),
+                {k: _host(v) for k, v in tree.items()},
+            )
         if env_id is None and not self.is_async:
             self._state, ts = self._engine.step(self._state, tree)
         else:
@@ -153,10 +213,15 @@ class EnvPoolBase:
                 "paired with a prior send)."
             )
         ts = self._recv_queue.popleft()
-        return self._to(self._materialize(ts), reset, return_info)
+        out = self._materialize(ts)
+        if self._recorder is not None:
+            self._recorder.on_recv(_host(out["info:env_id"]), _host(out["done"]))
+        return self._to(out, reset, return_info)
 
     def async_reset(self) -> None:
         """Reset all envs, delivering results in ``batch_size`` chunks."""
+        if self._recorder is not None:
+            self._recorder.on_reset(self.all_env_ids)
         for start in range(0, self.num_envs, self.batch_size):
             ids = self.all_env_ids[start : start + self.batch_size]
             self._state, ts = self._reset_rows(self._tensor(ids, torch.int64))
@@ -175,6 +240,8 @@ class EnvPoolBase:
     def reset(self, env_id: np.ndarray | None = None) -> Any:
         if env_id is None:
             env_id = self.all_env_ids
+        if self._recorder is not None:
+            self._recorder.on_reset(_host(env_id))
         self._state, ts = self._reset_rows(self._tensor(env_id, torch.int64))
         return self._to(
             self._materialize(ts),
@@ -205,20 +272,95 @@ class EnvPoolBase:
     def close(self, **kwargs: Any) -> None:
         del kwargs
 
-    # -- not ported yet ----------------------------------------------------
+    # -- render ------------------------------------------------------------
 
-    def render(self, env_id: np.ndarray | None = None):
-        raise NotImplementedError("render() is not ported to envpool_tpu_torch yet")
+    def render(self, env_id: np.ndarray | None = None) -> np.ndarray | None:
+        """Batched RGB frames ``[B, H, W, 3]`` uint8 of the addressed envs.
+
+        The analog of ``AsyncEnvPool::Render`` (``core/async_envpool.h:
+        183-222``), drawn on the pool's device by the env's batched
+        ``render_state``.  With ``render_mode="human"`` (reference
+        ``envpool/python/envpool.py:264-295``) the batch is tiled into one
+        grid image and shown in an OpenCV window; returns None.
+        """
+        if env_id is None:
+            env_id = self.all_env_ids
+        ids = self._tensor(env_id, torch.int64)
+        states = _tree_map(lambda x: x.index_select(0, ids), self._state.env_state)
+        out = self._env.render_state(states).cpu().numpy()
+        if self.config.get("render_mode", "rgb_array") == "human":
+            self._show_human_frame(tile_frames(out))
+            return None
+        return out
+
+    def _show_human_frame(self, frame: np.ndarray) -> None:
+        """Display one RGB frame in a (reused) OpenCV window, as
+        ``EnvPoolMixin._show_human_frame`` does (``envpool/python/
+        envpool.py:246-263``)."""
+        try:
+            import cv2
+        except ImportError as exc:
+            raise RuntimeError(
+                "render_mode='human' requires opencv-python to be installed"
+            ) from exc
+        window_name = getattr(
+            self, "_render_window_name", f"{self.__class__.__name__}-render"
+        )
+        cv2.imshow(window_name, np.ascontiguousarray(frame[:, :, ::-1]))
+        cv2.waitKey(1)
+        self._render_window_name = window_name
+
+    # -- checkpoint / resume -----------------------------------------------
 
     def save_state(self, path: str) -> None:
-        raise NotImplementedError(
-            "save_state() is not ported to envpool_tpu_torch yet"
+        """Snapshot the full pool state (all envs) to an .npz file."""
+        leaves, desc = _flatten(self._state)
+        np.savez(
+            path, *(x.cpu().numpy() for x in leaves),
+            __treedef__=np.frombuffer(desc.encode(), dtype=np.uint8),
         )
 
     def load_state(self, path: str) -> None:
-        raise NotImplementedError(
-            "load_state() is not ported to envpool_tpu_torch yet"
-        )
+        """Restore a snapshot taken by :meth:`save_state`.
+
+        Fails loudly if the snapshot was taken under a different config:
+        the stored structure and every leaf's shape and dtype must match
+        the current pool's, or leaves would land in the wrong fields.
+        """
+        with np.load(path) as data:
+            count = sum(f.startswith("arr_") for f in data.files)
+            leaves = [data[f"arr_{i}"] for i in range(count)]
+            stored = (
+                bytes(data["__treedef__"]).decode() if "__treedef__" in data else None
+            )
+        cur_leaves, desc = _flatten(self._state)
+        if stored is not None and stored != desc:
+            raise ValueError(
+                "load_state: snapshot treedef does not match this pool's "
+                "state tree (was the snapshot taken with a different env "
+                f"config?).\n  stored:  {stored}\n  current: {desc}"
+            )
+        if len(leaves) != len(cur_leaves):
+            raise ValueError(
+                f"load_state: snapshot has {len(leaves)} leaves, pool state "
+                f"has {len(cur_leaves)}"
+            )
+        for i, (new, cur) in enumerate(zip(leaves, cur_leaves)):
+            if tuple(new.shape) != tuple(cur.shape) or new.dtype != _numpy_dtype(cur):
+                raise ValueError(
+                    f"load_state: leaf {i} mismatch — snapshot "
+                    f"{new.dtype}{tuple(new.shape)} vs pool "
+                    f"{_numpy_dtype(cur)}{tuple(cur.shape)}"
+                )
+        it = iter(torch.from_numpy(np.ascontiguousarray(a)).to(self._device) for a in leaves)
+
+        def fill(tree):
+            if isinstance(tree, dict):
+                return {k: fill(v) for k, v in tree.items()}
+            return next(it)
+
+        self._state = PoolState(*(fill(getattr(self._state, f)) for f in _POOL_FIELDS))
+        self._recv_queue.clear()
 
     # -- functional escape hatch -------------------------------------------
 

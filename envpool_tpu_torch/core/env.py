@@ -58,7 +58,8 @@ COMMON_CONFIG: dict[str, Any] = {
     # Accepted for config compatibility with envpool_tpu; only None is
     # supported (one device per pool).
     "sharding": None,
-    # Accepted for config compatibility; only "" (off) is supported.
+    # Directory for one .npz of actions per finished episode
+    # (adapters/record.py); "" records nothing.
     "record_dir": "",
     "render_mode": "rgb_array",
     # envpool_tpu_torch: the torch device that holds the pool's state.
@@ -138,11 +139,6 @@ class TorchEnv:
                 "envpool_tpu_torch runs one pool on one device; "
                 "sharding must be None"
             )
-        if config.get("record_dir"):
-            raise NotImplementedError(
-                "envpool_tpu_torch does not record episodes; "
-                "record_dir must be empty"
-            )
         self.config = config
         self.device = torch.device(config["device"])
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -190,6 +186,16 @@ class TorchEnv:
     def step_env(self, state: Any, action: Any, draws: dict) -> EnvOut:
         """Advance every row one step."""
         raise NotImplementedError
+
+    # -- optional rendering (RenderableEnv analog, core/env.h:30-38) -------
+
+    render_size: tuple[int, int] | None = None  # (height, width) or None
+
+    def render_state(self, state: Any) -> torch.Tensor:
+        """Rasterization of a batch of env states: ``[N, H, W, 3]`` uint8."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support render"
+        )
 
     # -- helpers -----------------------------------------------------------
 

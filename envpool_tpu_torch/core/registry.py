@@ -78,9 +78,25 @@ class EnvRegistry:
             )
         import_path, env_cls, default_kwargs = self.specs[task_id]
         self._check_seed(kwargs)
+        # from_pixels: the pixel variant (reference registration.py:142-185).
+        # The pixel keys are taken out only then: otherwise height, width
+        # and the rest are the env's own config.
+        from_pixels = bool(kwargs.pop("from_pixels", False))
+        pixel_kwargs = {}
+        if from_pixels:
+            pixel_kwargs = {
+                k: kwargs.pop(k)
+                for k in ("height", "width", "stack", "view_size", "track_body")
+                if k in kwargs
+            }
         module = importlib.import_module(import_path)
         cls = getattr(module, env_cls)
-        return cls.from_config(**{**default_kwargs, **kwargs})
+        env = cls.from_config(**{**default_kwargs, **kwargs})
+        if from_pixels:
+            from ..envs.pixels import wrap_from_pixels
+
+            env = wrap_from_pixels(env, **pixel_kwargs)
+        return env
 
     def make_spec(self, task_id: str, **kwargs: Any):
         from .env_spec import EnvSpec

@@ -308,6 +308,16 @@ class ArcadeEnv(TorchEnv):
             "info:ram": self.game.ram(g),
         }
 
+    # -- render ------------------------------------------------------------
+
+    render_size = (RAW_H, RAW_W)
+
+    def render_state(self, state):
+        """Raw-resolution RGB frames of the games' states: ``[N, H, W, 3]``
+        uint8."""
+        rgb = self.game.render_rgb(state["game"])  # [N, 3, H, W] float32
+        return torch.clamp(torch.round(rgb.permute(0, 2, 3, 1)), 0, 255).to(torch.uint8)
+
     # -- reset -------------------------------------------------------------
 
     def reset_env(self, draws):

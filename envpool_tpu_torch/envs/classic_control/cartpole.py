@@ -92,7 +92,33 @@ class CartPoleEnv(TorchEnv):
             terminated=terminated,
         )
 
+    # -- rendering (reference: render_utils RenderCartPole, 600x400) -------
+
+    render_size = (400, 600)
+
     def render_state(self, state):
-        raise NotImplementedError(
-            "CartPole rendering is not ported to envpool_tpu_torch yet"
-        )
+        """``[N, 400, 600, 3]`` uint8: the track, the cart and the pole,
+        pixel tests as in the JAX env's ``render_state``."""
+        h, w = self.render_size
+        x, theta = state[:, 0, None, None], state[:, 2, None, None]
+        scale = w / (2 * 2.4 * 2)
+        cart_x = w / 2 + x * scale
+        cart_y = h * 0.75
+        rows = torch.arange(h, dtype=torch.float32, device=state.device)[:, None]
+        cols = torch.arange(w, dtype=torch.float32, device=state.device)[None, :]
+        track = (rows >= cart_y + 14) & (rows <= cart_y + 16)
+        cart = ((cols - cart_x).abs() <= 25) & (rows >= cart_y - 15) & (rows <= cart_y + 15)
+        # Pole: the pixels in the pole's frame (length 100, width 10).
+        dx = cols - cart_x
+        dy = cart_y - 15 - rows  # up is positive
+        ct, st = torch.cos(theta), torch.sin(theta)
+        along = dx * st + dy * ct
+        across = dx * ct - dy * st
+        pole = (along >= 0) & (along <= 100) & (across.abs() <= 5)
+
+        def rgb(*c):
+            return torch.tensor(c, dtype=torch.uint8, device=state.device)
+
+        frame = torch.full((x.shape[0], h, w, 3), 255, dtype=torch.uint8, device=state.device)
+        frame = torch.where(pole[..., None], rgb(202, 152, 101), frame)
+        return torch.where((cart | track)[..., None], rgb(0, 0, 0), frame)

@@ -9,8 +9,8 @@ episodes end only at the time limit, with discount 1.0.
 
 The config is the JAX env's: ``task_name``, ``substeps``, ``contact_kp`` /
 ``contact_kd`` (2e4 / 2e2, stiffer than Gym-MuJoCo's) and
-``contact_solver`` / ``contact_sol_iters`` (``"mujoco"`` raises
-``NotImplementedError``).  A reset's randomness comes from
+``contact_solver`` / ``contact_sol_iters`` (``"mujoco"``: the constraint
+solver, ``physics/solver.py``).  A reset's randomness comes from
 :meth:`reset_draws`; the tasks map the draws to a state the way the JAX
 tasks map their threefry draws.
 """
@@ -30,7 +30,6 @@ from ...physics.dynamics import (
     ContactParams,
     _kin,
     _vel_from_kin,
-    check_supported,
     full_fp32,
     mass_matrix,
 )
@@ -77,7 +76,6 @@ class DmcEnv(PhysicsEnv):
         )
         self.substeps = int(config["substeps"])
         self.task = str(config["task_name"])
-        check_supported(self.model, self.contact)
         m = self.model
         if self.mass_condition() > COND_FLOAT64:
             self.physics_dtype = torch.float64

@@ -12,7 +12,9 @@ The config is the JAX env's: ``frame_skip``, ``xml_file``,
 ``exclude_current_positions_from_observation``, ``integrator``, and the
 penalty-contact extensions ``substeps`` / ``contact_kp`` / ``contact_kd``.
 ``frame_stack`` and ``post_constraint`` are accepted and unused, as there;
-``contact_solver="mujoco"`` raises ``NotImplementedError``.
+``contact_solver="mujoco"`` (with ``contact_sol_iters`` sweeps) steps the
+ground contacts and joint limits with the constraint solver
+(``physics/solver.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 from ...core import rng
 from ...core.env import EnvOut
 from ...core.specs import ArraySpec
-from ...physics.dynamics import ContactParams, check_supported, full_fp32
+from ...physics.dynamics import ContactParams, full_fp32
 from ...physics.model import load_model
 from ..physics_env import PhysicsEnv
 
@@ -59,7 +61,6 @@ class MujocoGymEnv(PhysicsEnv):
             sol_iters=int(config["contact_sol_iters"]),
         )
         self.substeps = int(config["substeps"])
-        check_supported(self.model, self.contact)
         self._qpos0 = torch.as_tensor(
             self.model.qpos0, dtype=torch.float32, device=self.device
         )

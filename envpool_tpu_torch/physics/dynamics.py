@@ -16,8 +16,10 @@ products over ``[N, ...]`` tensors: the servos, tendons and pairs are
 gathered and reduced over their count, with no Python loop over them.
 Euler with implicit damping and RK4 integrate.
 
-Left out, raising ``NotImplementedError`` (:func:`check_supported`): the
-constraint solver (``contact_solver="mujoco"``).
+With ``ContactParams(solver="mujoco")`` (the configs' ``contact_solver``)
+the ground contacts and the joint limits are MuJoCo's soft constraints
+instead of penalty springs, solved by projected Gauss–Seidel
+(``physics/solver.py``); pairs and spatial tendons keep their penalties.
 The JAX package's lane-parallel scalar backend (``physics/scalar.py``)
 and its ``custom_vmap`` dispatch are a TPU layout and are not ported.
 
@@ -35,6 +37,7 @@ import torch
 from .kinematics import _mv, fk, fk_dof, integrate_qpos, model_tensors
 from .linalg import spd_solve
 from .model import PhysModel
+from .solver import _solver_tensors, constraint_force
 
 __all__ = [
     "ContactParams",
@@ -66,19 +69,12 @@ class ContactParams(NamedTuple):
     pairs: bool = False  # body-body contacts (model.pair_*)
     pair_kp: float = 1.0e4
     pair_kd: float = 1.0e2
-    solver: str = "penalty"  # "mujoco" (the constraint solver) is not ported
+    solver: str = "penalty"  # "mujoco": the constraint solver (physics/solver.py)
     sol_iters: int = 40
 
 
-def check_supported(model: PhysModel, contact: ContactParams) -> None:
-    """Raise ``NotImplementedError`` for what the port's dynamics lack: the
-    constraint solver."""
-    del model
-    if contact.solver != "penalty":
-        raise NotImplementedError(
-            "not ported to envpool_tpu_torch's physics: "
-            f"contact_solver={contact.solver!r}"
-        )
+def _use_solver(contact: ContactParams) -> bool:
+    return contact.solver == "mujoco"
 
 
 @contextlib.contextmanager
@@ -214,7 +210,13 @@ def switch_sides(
     Rs, ps = fk(model, q)
     qs = q[:, mt.hs_qadr]
     depth = mt.con_radius - _contact_points(mt, Rs, ps)[..., 2]
-    sides = [depth > 0, qs < mt.hs_lo, qs > mt.hs_hi]
+    if _use_solver(contact):
+        # The solver's rows switch on at their margins instead.
+        st = _solver_tensors(model, q.device, q.dtype)
+        sides = [-depth < st.con_margin, qs - mt.hs_lo < st.lim_margin,
+                 mt.hs_hi - qs < st.lim_margin]
+    else:
+        sides = [depth > 0, qs < mt.hs_lo, qs > mt.hs_hi]
     if mt.ten_lo.shape[0]:
         _, _, over, under = _tendon_geometry(mt, Rs, ps)
         sides += [over > 0, under > 0]
@@ -396,13 +398,17 @@ def _fluid_forces(mt, v_com, omega, Rs):
     return _mv(Ri, f), _mv(Ri, t)
 
 
-def _passive_forces(mt, q, qd):
+def _passive_forces(mt, q, qd, limit_penalty: bool = True):
     """Joint springs, the soft joint-limit penalty (damping implicit) and
-    the fixed tendons' springs and dampers (explicit, as in the JAX step)."""
+    the fixed tendons' springs and dampers (explicit, as in the JAX step).
+    ``limit_penalty=False`` (solver mode) drops the limit penalty: the
+    limits are constraint rows there."""
     qs = q[:, mt.hs_qadr]
-    below = torch.clamp_max(qs - mt.hs_lo, 0.0)
-    above = torch.clamp_min(qs - mt.hs_hi, 0.0)
-    spring = -mt.hs_stiffness * (qs - mt.hs_springref) - _KLIM * (below + above)
+    spring = -mt.hs_stiffness * (qs - mt.hs_springref)
+    if limit_penalty:
+        below = torch.clamp_max(qs - mt.hs_lo, 0.0)
+        above = torch.clamp_min(qs - mt.hs_hi, 0.0)
+        spring = spring - _KLIM * (below + above)
     tau = q.new_zeros(q.shape[0], mt.dof_damping.shape[0]).index_add_(
         1, mt.hs_dadr, spring
     )
@@ -507,8 +513,11 @@ def pair_forces(
 
 
 def _smooth(model: PhysModel, q, qd, ctrl, contact: ContactParams):
-    """One shared pass: ``(M, τ, D_con, kin)`` with every force once."""
+    """One shared pass: ``(M, τ, D_con, kin)`` with every force once.  In
+    solver mode τ leaves out the ground contacts and the joint-limit
+    penalty (the solver's rows), and ``D_con`` is None."""
     mt = model_tensors(model, q.device, q.dtype)
+    use_solver = _use_solver(contact)
     k = _kin(model, q)
     Iw = _world_inertia(mt, k.Rs)
     Jp, Jr, Jc = _jac_from_kin(mt, k)
@@ -518,11 +527,13 @@ def _smooth(model: PhysModel, q, qd, ctrl, contact: ContactParams):
     tv = qd[..., None] * k.t
     wv = qd[..., None] * k.w
     wxc = torch.linalg.cross(wv, k.c)
-    v_con, _ = _point_vel(mt.con_mask_T, tv, wv, wxc, k.centers)
-    tau_con, d_con = _contact_forces_shared(mt, contact, k.centers, v_con, Jc)
+    tau_con, d_con = 0.0, None
+    if not use_solver:
+        v_con, _ = _point_vel(mt.con_mask_T, tv, wv, wxc, k.centers)
+        tau_con, d_con = _contact_forces_shared(mt, contact, k.centers, v_con, Jc)
     tau = (
         _actuator_forces(mt, ctrl, q, qd)
-        + _passive_forces(mt, q, qd)
+        + _passive_forces(mt, q, qd, limit_penalty=not use_solver)
         + tau_con
         - c
         - mt.dof_damping * qd
@@ -545,9 +556,15 @@ def forward(
     ctrl: torch.Tensor,
     contact: ContactParams = ContactParams(),
 ) -> torch.Tensor:
-    """Forward dynamics: qacc ``[N, nv]`` with explicit damping (for RK4)."""
-    check_supported(model, contact)
-    M, tau, _, _ = _smooth(model, q, qd, ctrl, contact)
+    """Forward dynamics: qacc ``[N, nv]`` with explicit damping (for RK4).
+    The constraint solver works at the model's timestep here, as in the
+    JAX step, whatever the substep."""
+    M, tau, _, k = _smooth(model, q, qd, ctrl, contact)
+    if _use_solver(contact):
+        qfrc_con, qacc_smooth = constraint_force(
+            model, k, q, qd, M, tau, model.timestep, contact.sol_iters
+        )
+        return qacc_smooth + spd_solve(M, qfrc_con)
     return spd_solve(M, tau)
 
 
@@ -559,7 +576,14 @@ def _euler(model, q, qd, ctrl, contact, h):
     left-hand side, as in the JAX step.
     """
     mt = model_tensors(model, q.device, q.dtype)
-    M, tau, d_con, _ = _smooth(model, q, qd, ctrl, contact)
+    M, tau, d_con, k = _smooth(model, q, qd, ctrl, contact)
+    if _use_solver(contact):
+        # mj_Euler: the solver's forces against plain M at the substep,
+        # then (M + h·diag(damping)) qacc = τ + Jᵀf.
+        qfrc_con, _ = constraint_force(model, k, q, qd, M, tau, h, contact.sol_iters)
+        qacc = spd_solve(M + h * torch.diag(mt.dof_damping), tau + qfrc_con)
+        qd_new = qd + h * qacc
+        return integrate_qpos(model, q, qd_new, h), qd_new
     diag_M = torch.diagonal(M, dim1=-2, dim2=-1)
     d_lim = 2.0 * torch.sqrt(_KLIM * diag_M) * _limit_violation(mt, q)
     M_imp = M + h * (torch.diag_embed(mt.dof_damping + d_lim) + d_con)
@@ -600,7 +624,6 @@ def step(
     is the frame-skip loop; ``substeps`` splits the timestep for
     penalty-contact stability.  Returns ``(qpos, qvel)``, both ``[N, ·]``.
     """
-    check_supported(model, contact)
     h = model.timestep / substeps
     stepper = _rk4 if model.integrator == 1 else _euler
     with full_fp32():

@@ -20,10 +20,14 @@ __all__ = ["spd_solve"]
 
 
 def spd_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``M x = b`` row by row: ``M`` is ``[N, n, n]``, ``b`` ``[N, n]``.
+    """Solve ``M x = b`` row by row: ``M`` is ``[N, n, n]``, ``b`` ``[N, n]``
+    or, for several right-hand sides at once, ``[N, n, k]``.
 
     Rows whose ``M`` is not SPD come out as NaN.
     """
     L, info = torch.linalg.cholesky_ex(M)
-    x = torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
-    return torch.where((info == 0).unsqueeze(-1), x, torch.nan)
+    vector = b.dim() == M.dim() - 1
+    rhs = b.unsqueeze(-1) if vector else b
+    x = torch.cholesky_solve(rhs, L)
+    x = torch.where((info == 0)[..., None, None], x, torch.nan)
+    return x.squeeze(-1) if vector else x

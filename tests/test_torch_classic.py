@@ -258,8 +258,8 @@ def test_gymnasium_dm_and_functional_pools_run_cartpole():
     handle, recv, send, step = pool.xla()
     handle, (obs, rew, term, trunc, info) = step(handle, torch.zeros(n, dtype=torch.int32))
     assert tuple(obs.shape) == (n, 4)
-    with pytest.raises(NotImplementedError):
-        pool.spec.env.render_state(pool.pool_state.env_state)
+    frames = pool.spec.env.render_state(pool.pool_state.env_state)
+    assert frames.shape == (n, 400, 600, 3) and frames.dtype == torch.uint8
 
 
 def test_make_defaults_to_the_card():

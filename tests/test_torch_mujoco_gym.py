@@ -145,8 +145,11 @@ def test_pools_run_and_unported_options_raise(tmp_path):
     handle, recv, send, step = pool.xla()
     handle, (obs, *_) = step(handle, torch.zeros(n, 6))
     assert tuple(obs.shape) == (n, 17)
-    with pytest.raises(NotImplementedError, match="contact_solver"):
-        envpool_tpu_torch.make_spec(TASK, device="cpu", contact_solver="mujoco")
+    # The constraint solver is ported (tests/test_torch_solver.py).
+    solver = envpool_tpu_torch.make(TASK, env_type="gymnasium", num_envs=n, device="cpu",
+                                    contact_solver="mujoco")
+    solver.reset()
+    assert np.isfinite(solver.step(np.zeros((n, 6), np.float32))[0]).all()
     with pytest.raises(ValueError, match="tools.export_models --xml"):
         envpool_tpu_torch.make_spec(TASK, device="cpu", xml_file="model.xml")
     pytest.importorskip("mujoco")

@@ -332,13 +332,14 @@ def _ball_xml(directory, limited=False):
 
 
 def test_unported_features_raise(models, states, tmp_path):
-    """The constraint solver and a limited ball joint raise; body-body
-    pairs and a limited spatial tendon step (their forces are held to JAX
-    in ``tests/test_torch_mujoco_dmc_forces.py``)."""
+    """A limited ball joint raises; the constraint solver (held to JAX in
+    ``tests/test_torch_solver.py``), body-body pairs and a limited spatial
+    tendon step (their forces are held to JAX in
+    ``tests/test_torch_mujoco_dmc_forces.py``)."""
     _, tm = models
     q, qd, u = _t(*states)
-    with pytest.raises(NotImplementedError, match="contact_solver"):
-        tdyn.step(tm, q, qd, u, contact=tdyn.ContactParams(solver="mujoco"))
+    out = tdyn.step(tm, q, qd, u, contact=tdyn.ContactParams(solver="mujoco"))
+    assert all(bool(torch.isfinite(x).all()) for x in out)
     out = tdyn.step(tm, q, qd, u, contact=tdyn.ContactParams(pairs=True))
     assert all(bool(torch.isfinite(x).all()) for x in out)
     # a string from the world's origin to a site on the torso
