@@ -16,7 +16,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["spd_solve"]
+__all__ = ["factor_solve", "spd_factor", "spd_solve"]
+
+
+def spd_factor(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(L, ok)``: the lower Cholesky factor of each ``M [N, n, n]`` and
+    whether it exists (``ok [N]`` bool; where it is false, ``L`` is
+    meaningless)."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return L, info == 0
 
 
 def spd_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -25,9 +33,13 @@ def spd_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     Rows whose ``M`` is not SPD come out as NaN.
     """
-    L, info = torch.linalg.cholesky_ex(M)
-    vector = b.dim() == M.dim() - 1
+    return factor_solve(*spd_factor(M), b)
+
+
+def factor_solve(L: torch.Tensor, ok: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`spd_solve` from ``spd_factor``'s ``(L, ok)``."""
+    vector = b.dim() == L.dim() - 1
     rhs = b.unsqueeze(-1) if vector else b
     x = torch.cholesky_solve(rhs, L)
-    x = torch.where((info == 0)[..., None, None], x, torch.nan)
+    x = torch.where(ok[..., None, None], x, torch.nan)
     return x.squeeze(-1) if vector else x

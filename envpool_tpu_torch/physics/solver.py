@@ -11,10 +11,12 @@ solve the regularised dual
 
     min_f  ½ fᵀ(A + R)f + fᵀ(J qacc_smooth − aref),   f ≥ 0,   A = J M⁻¹ Jᵀ
 
-by ``iterations`` projected Gauss–Seidel sweeps over the rows in order
-(``ops.cuda_pgs.pgs_solve``: a hand-written kernel on the card, a plain
-loop over rows on the CPU).  ``A`` comes from one batched SPD solve and
-one batched matmul, as the JAX code forms it outside any kernel.
+by ``iterations`` projected Gauss–Seidel sweeps over the rows in order.
+``M`` is factored once here; ``ops.cuda_pgs.pgs_solve`` takes the rows
+and the factor and does the rest: on the card a hand-written kernel forms
+``A`` for each env's active rows alone and runs the sweeps and ``Jᵀf``;
+on the CPU the plain route forms the dense ``A`` by one batched solve and
+one batched matmul, as the JAX code does, and loops over the rows.
 
 Rows whose distance is at or past their margin are inactive: their force
 stays 0.  An unlimited joint's row has its distance set to 0, so no
@@ -32,7 +34,7 @@ import torch
 
 from ..ops.cuda_pgs import pgs_solve
 from .kinematics import model_tensors
-from .linalg import spd_solve
+from .linalg import factor_solve, spd_factor
 from .model import PhysModel
 from .structure import dof_structure
 
@@ -185,18 +187,13 @@ def solver_rows(model: PhysModel, k, q: torch.Tensor, qd: torch.Tensor, h: float
 
 def pgs_system(model: PhysModel, k, q: torch.Tensor, qd: torch.Tensor, M: torch.Tensor,
                tau_smooth: torch.Tensor, h: float):
-    """The sweeps' inputs and what turns their forces into accelerations:
-    ``(A, b, R, diag, active, J, qacc_smooth)`` with ``A = J M⁻¹ Jᵀ``
-    ``[N, nr, nr]``, ``b = J qacc_smooth − aref`` and ``diag = A_ii + R_i``
-    (at least 1e-10)."""
+    """The solve's inputs, ``pgs_solve``'s arguments: ``(J, L, ok,
+    qacc_smooth, aref, R, active)`` with ``L`` ``M``'s Cholesky factor,
+    ``ok`` whether it exists and ``qacc_smooth = M⁻¹ tau_smooth`` (NaN
+    where it does not)."""
     J, aref, R, active = solver_rows(model, k, q, qd, h)
-    JT = J.transpose(1, 2)
-    x = spd_solve(M, torch.cat([tau_smooth[..., None], JT], -1))
-    qacc_smooth, MinvJT = x[..., 0], x[..., 1:]
-    A = J @ MinvJT
-    b = (J @ qacc_smooth[..., None]).squeeze(-1) - aref
-    diag = torch.clamp_min(torch.diagonal(A, dim1=-2, dim2=-1) + R, _MINVAL)
-    return A, b, R, diag, active, J, qacc_smooth
+    L, ok = spd_factor(M)
+    return J, L, ok, factor_solve(L, ok, tau_smooth), aref, R, active
 
 
 def constraint_force(
@@ -212,8 +209,9 @@ def constraint_force(
     """``(qfrc_constraint [N, nv], qacc_smooth [N, nv])``: the joint-space
     constraint force ``Jᵀf`` of the projected Gauss–Seidel solution and
     ``M⁻¹ tau_smooth``.  ``k`` is the dynamics' tree pass at ``q``."""
-    A, b, R, diag, active, J, qacc_smooth = pgs_system(model, k, q, qd, M, tau_smooth, h)
-    if J.shape[1] == 0:
+    system = pgs_system(model, k, q, qd, M, tau_smooth, h)
+    qacc_smooth = system[3]
+    if system[0].shape[1] == 0:
         return torch.zeros_like(tau_smooth), qacc_smooth
-    f = pgs_solve(A, b, R, diag, active, iterations)
-    return (J.transpose(1, 2) @ f[..., None]).squeeze(-1), qacc_smooth
+    _, qfrc = pgs_solve(*system, iterations)
+    return qfrc, qacc_smooth

@@ -10,7 +10,9 @@ farther than float32 rounding of forces up to ~5e4 (Hopper pressed into
 the floor).  One env step of Ant-v4 (RK4, its model's integrator, and
 Euler) and of WalkerWalk-v1, state, obs and reward, is held to
 ``STEP_TOL``, the physics tests' bar, against JAX's ``step_env`` with
-JAX's physics built from its jitted single-env pieces.  The kernel
+JAX's physics built from its jitted single-env pieces.  The plain
+version of the PGS kernel (formation, sweeps, ``Jᵀf``) is held to a numpy
+transcription of JAX's ``constraint_force`` after the rows; the kernel
 against the plain version runs only on the card.
 """
 
@@ -31,7 +33,8 @@ import envpool_tpu_torch
 from envpool_tpu_torch.physics import dynamics as tdyn
 from envpool_tpu_torch.physics import solver as tsol
 from envpool_tpu_torch.physics.model import load_model
-from envpool_tpu_torch.ops.cuda_pgs import CACHED_ROWS, pgs_plain, pgs_solve
+from envpool_tpu_torch.ops.cuda_pgs import pgs_form, pgs_plain, pgs_solve, pgs_solve_plain
+from envpool_tpu_torch.physics.linalg import factor_solve, spd_factor, spd_solve
 
 FORCE_TOL = 1e-4
 STEP_TOL = 1e-4
@@ -253,23 +256,44 @@ def test_solver_configs_reach_the_physics():
     assert env.contact == tdyn.ContactParams(kp=2e4, kd=2e2, solver="mujoco", sol_iters=12)
 
 
-def _random_systems(n, nr, dtype, device, seed, share=0.5):
-    """``n`` random regularised SPD systems of ``nr`` rows with about
-    ``share`` of them active."""
-    gen = torch.Generator().manual_seed(seed)
-    J = torch.randn(n, nr, max(2, nr // 3), generator=gen, dtype=torch.float64)
-    A = J @ J.transpose(1, 2)
-    b = torch.randn(n, nr, generator=gen, dtype=torch.float64)
-    R = 0.1 + torch.rand(n, nr, generator=gen, dtype=torch.float64)
-    diag = torch.diagonal(A, dim1=1, dim2=2) + R
-    active = torch.rand(n, nr, generator=gen) < share
-    return [t.to(device, dtype) for t in (A, b, R, diag)] + [active.to(device)]
+def _random_systems(n, nr, nv, dtype, device, seed, share=0.5):
+    """``(M, [J, L, ok, qacc_smooth, aref, R, active])``: ``n`` random
+    constraint systems of ``nr`` rows over ``nv`` dofs, a random SPD ``M``
+    and about ``share`` of the rows active, made with numpy."""
+    r = np.random.default_rng(seed)
+    B = r.normal(size=(n, nv, nv))
+    M = B @ B.transpose(0, 2, 1) + nv * np.eye(nv)
+    J = r.normal(size=(n, nr, nv))
+    qacc = r.normal(size=(n, nv))
+    aref = r.normal(size=(n, nr))
+    R = 0.1 + r.uniform(size=(n, nr))
+    active = torch.as_tensor(r.uniform(size=(n, nr)) < share, device=device)
+    L, ok = spd_factor(torch.as_tensor(M, dtype=dtype, device=device))
+    t = [torch.as_tensor(x, dtype=dtype, device=device) for x in (J, qacc, aref, R)]
+    return M, [t[0], L, ok, t[1], t[2], t[3], active]
+
+
+def _jax_after_rows(M, J, qacc, aref, R, active, iterations):
+    """A numpy transcription of JAX's ``constraint_force`` after the rows
+    (``envpool_tpu/physics/solver.py``): ``M⁻¹Jᵀ`` by a dense solve, the
+    dense loop over every row in order, ``Jᵀf``."""
+    A = J @ np.linalg.solve(M, J.T)
+    b = J @ qacc - aref
+    diag = np.maximum(np.diag(A) + R, 1e-10)
+    f = np.zeros(len(b))
+    for _ in range(iterations):
+        for i in range(len(b)):
+            g = A[i] @ f + b[i] + R[i] * f[i]
+            f[i] = max(0.0, f[i] - g / diag[i]) * active[i]
+    return f, J.T @ f
 
 
 def test_plain_sweeps_match_jax_loop():
     """The plain sweeps against a direct transcription of the JAX loop
     (every row, one-hot rows), in float64: equal to rounding."""
-    A, b, R, diag, active = _random_systems(3, 9, torch.float64, "cpu", seed=1)
+    _, (J, L, ok, qacc, aref, R, active) = _random_systems(3, 9, 4, torch.float64, "cpu",
+                                                           seed=1)
+    A, b, diag = pgs_form(J, L, ok, qacc, aref, R)
     got = pgs_plain(A, b, R, diag, active, 40)
     for e in range(3):
         f = np.zeros(9)
@@ -279,6 +303,58 @@ def test_plain_sweeps_match_jax_loop():
                 g = a[i] @ f + bb[i] + rr[i] * f[i]
                 f[i] = max(0.0, f[i] - g / dd[i]) * act[i]
         np.testing.assert_allclose(got[e].numpy(), f, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("nr, nv", [(12, 5), (40, 14)])
+def test_plain_pgs_matches_jax_constraint_force(nr, nv):
+    """The kernel's plain version (the dense formation from ``M``'s
+    factor, the sweeps, ``Jᵀf``) on random float64 systems against the
+    numpy transcription of JAX's ``constraint_force`` after the rows:
+    forces and ``qfrc`` within 1e-12."""
+    M, system = _random_systems(4, nr, nv, torch.float64, "cpu", seed=nr)
+    f, qfrc = pgs_solve_plain(*system, 40)
+    J, _, _, qacc, aref, R, active = (x.numpy() for x in system)
+    assert 0 < active.sum(1).min() and active.sum(1).max() < nr
+    for e in range(4):
+        want_f, want_q = _jax_after_rows(M[e], J[e], qacc[e], aref[e], R[e], active[e], 40)
+        assert np.abs(want_f).max() > 0.1  # the solver pushes
+        np.testing.assert_allclose(f[e].numpy(), want_f, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(qfrc[e].numpy(), want_q, rtol=1e-12, atol=1e-12)
+
+
+def test_pgs_nan_only_where_not_spd():
+    """An env whose ``M`` is not SPD gets NaN in ``qfrc`` and on its active
+    rows' forces, 0 on its inactive rows; every other env is finite."""
+    M, (J, L, ok, qacc, aref, R, active) = _random_systems(4, 20, 6, torch.float64, "cpu",
+                                                           seed=5)
+    M[2, 0, 0] = -1.0
+    L, ok = spd_factor(torch.as_tensor(M))
+    qacc = factor_solve(L, ok, qacc)
+    assert ok.tolist() == [True, True, False, True]
+    f, qfrc = pgs_solve(J, L, ok, qacc, aref, R, active, 40)
+    bad = ~ok
+    assert bool(qfrc[bad].isnan().all()) and bool(torch.isfinite(qfrc[ok]).all())
+    assert bool(f[bad][active[bad]].isnan().all()) and bool(torch.isfinite(f[ok]).all())
+    assert float(f.masked_fill(active, 0).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("columns", [None, 1, 9])
+def test_spd_factor_then_solve_equals_spd_solve(columns):
+    """``spd_factor`` and a solve with its factor give ``spd_solve``'s
+    numbers bit for bit (NaN rows where not SPD included)."""
+    r = np.random.default_rng(11)
+    B = r.normal(size=(5, 7, 7))
+    M = torch.as_tensor(B @ B.transpose(0, 2, 1) + 0.1 * np.eye(7), dtype=torch.float32)
+    M[3] = -M[3]
+    b = torch.as_tensor(r.normal(size=(5, 7) if columns is None else (5, 7, columns)),
+                        dtype=torch.float32)
+    want = spd_solve(M, b)
+    L, ok = spd_factor(M)
+    got = factor_solve(L, ok, b)
+    assert bool(want[3].isnan().all()) and bool(torch.isfinite(want[ok]).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    x = torch.cholesky_solve(b[..., None] if columns is None else b, L)
+    torch.testing.assert_close(x.reshape(want.shape)[ok], want[ok], rtol=0, atol=0)
 
 
 @pytest.fixture
@@ -292,16 +368,20 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nr", [9, 108, 300])
 def test_pgs_kernel_matches_plain_on_card(cuda_device, dtype, nr):
-    """Float and double, active rows within and past what a warp keeps in
-    shared memory (300 rows at half active: past ``CACHED_ROWS``)."""
-    A, b, R, diag, active = _random_systems(64, nr, dtype, cuda_device, seed=nr)
+    """Float and double, active rows within and past what an env keeps
+    resident (300 rows at half active: past the kernel's resident rows):
+    forces and ``qfrc`` of the kernel against its plain version."""
+    _, system = _random_systems(64, nr, 14, dtype, cuda_device, seed=nr)
     before = pgs_solve.launches
-    got = pgs_solve(A, b, R, diag, active, 40)
+    got = pgs_solve(*system, 40)
     torch.cuda.synchronize()
     assert pgs_solve.launches == before + 1
-    want = pgs_plain(A, b, R, diag, active, 40)
+    want = pgs_solve_plain(*system, 40)
     tol = 1e-4 if dtype == torch.float32 else 1e-10
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-    assert float(got.masked_fill(active, 0).abs().max()) == 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    active = system[-1]
+    assert float(got[0].masked_fill(active, 0).abs().max()) == 0.0
     if nr == 300:
-        assert int(active.sum(1).min()) > CACHED_ROWS[dtype]
+        resident = pgs_solve.occupancy(64, 14, dtype)["resident_rows"]
+        assert int(active.sum(1).min()) > resident
