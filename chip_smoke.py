@@ -29,8 +29,14 @@ of finger, quadruped fetch, manipulator and stacker), and the other four
 Dog ids one at 32 envs.  Then Ant-v4 with ``contact_solver="mujoco"`` at
 8192 envs (the PGS kernel's path; card vs CPU at 1024), CheetahRun-v1 and
 SwimmerSwimmer15-v1 in solver mode at 256, CheetahRun-v1 ``from_pixels``
-at 4096 envs (its frames card vs CPU by the frame rule), and the engine's
-remaining surface on the card: ``render()``, ``save_state`` /
+at 4096 envs (its frames card vs CPU by the frame rule), procgen's
+MazeEasy-v0 at 2048 envs (card and CPU equal in every field) and
+vizdoom's Basic-v1 at 1024 envs (card vs CPU by the rule of
+``envpool_tpu_torch/ops/thresholds.py``), each through every entry point,
+profiled (the reset branch alone too) and timed, with every other procgen
+grid id an exact check at 256 envs and every other procgen and vizdoom id
+a check by the rule at 64 envs, and the engine's remaining surface on the
+card: ``render()``, ``save_state`` /
 ``load_state``, ``record_dir`` and two wrappers.  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
 holds it to its chain bound: each frame's most emulated instructions on
@@ -1893,6 +1899,209 @@ def section_pixels(device: str, card: str) -> dict:
     return dict(prof, steps_per_s=steps_per_s)
 
 
+# ---------------------------------------------------------------------------
+# procgen (MazeEasy-v0) and vizdoom (Basic-v1): no kernel on their paths
+# ---------------------------------------------------------------------------
+
+# The widths of bench.py's sweep rows (bench.py:203, :204); every other id
+# of the two families a short card-vs-CPU check (procgen's grid ids exact,
+# at N_EXACT envs, the others by the rule at N_RENDER_SHORT envs).
+N_MAZE = 2048
+N_DOOM = 1024
+N_RENDER_SHORT = 64
+GRID_GAMES = ("Maze", "Heist", "Chaser", "Miner")
+
+
+def _kernel_launches() -> tuple:
+    from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
+    from envpool_tpu_torch.ops.cuda_machine import machine_frame
+    from envpool_tpu_torch.ops.cuda_pgs import pgs_solve
+
+    return fused_pool_resize, machine_frame, pgs_solve
+
+
+def phase_rule_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: int,
+                           tol: float | None = None, **make_kwargs) -> dict:
+    """After ``warmup`` random steps on the card, ``steps`` engine steps
+    each taken on the card and on the CPU from the same pool state and
+    action, held by ``ops.thresholds.hold_step``: every field but the
+    frames within ``tol`` (``STATE_TOL`` by default; 0: equal) of the
+    CPU's, an env near a float threshold excused (at most
+    ``MAX_EXCUSED_SHARE`` of the env steps), frames equal but at pixels
+    float rounding decides (at most ``MAX_PIXEL_SHARE`` of them differ),
+    with resets among the checked steps.  Returns the totals."""
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch.core import rng
+    from envpool_tpu_torch.core.engine import Engine, PoolState, _tree_map
+    from envpool_tpu_torch.ops import thresholds
+
+    tol = thresholds.STATE_TOL if tol is None else tol
+    card = _pool(device, task, n, **make_kwargs)
+    env = envpool_tpu_torch.make_spec(task, num_envs=n, seed=SEED, device="cpu",
+                                      **make_kwargs).env
+    cpu = Engine(env)
+    eng = card.engine
+    gen = torch.Generator().manual_seed(SEED)
+    sample = _sampler(_spec(card), n, "cpu")
+    ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
+    for _ in range(warmup):
+        ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
+    totals, resets, t0 = {}, 0, time.perf_counter()
+    for t in range(steps):
+        act = sample(gen)
+        ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), f) for f in (
+            ps.env_state, ps.key, ps.elapsed, ps.autoreset, ps.full_reset)))
+        ps, got = eng.step(ps, {"action": act.to(device)})
+        cps, want = cpu.step(ps_cpu, {"action": act})
+        draws = env.step_draws(rng.split(ps_cpu.key)[1])
+        v = thresholds.hold_step(
+            env, ps_cpu.env_state, act, draws, ps_cpu.autoreset,
+            {"state": cps.env_state, "ts": want},
+            {"state": _tree_map(lambda x: x.cpu(), ps.env_state),
+             "ts": {k: x.cpu() for k, x in got.items()}}, tol)
+        _check(v["failed"] == 0 and v["violations"] == 0,
+               f"{task}: card and CPU differ at step {t}: {v}")
+        for k, x in v.items():
+            totals[k] = totals.get(k, 0) + x
+        resets += int(ps_cpu.autoreset.sum())
+    _check(totals["excused"] <= thresholds.MAX_EXCUSED_SHARE * totals["envs"],
+           f"{task}: {totals['excused']} of {totals['envs']} env steps excused")
+    _check(totals["differ"] <= thresholds.MAX_PIXEL_SHARE * totals["pixels"],
+           f"{task}: {totals['differ']} of {totals['pixels']} pixels differ")
+    _check(resets > 0, f"{task}: no reset among the checked steps")
+    print(f"  {task} card vs CPU, {n} envs x {steps} steps from the same states (after "
+          f"{warmup} warm-up steps; {resets} resets): fields "
+          + ("equal" if tol == 0 else f"within {tol:g}") + f", {totals['excused']} env steps "
+          f"excused near a threshold; {totals['differ']} of {totals['pixels']} pixels differ "
+          f"({totals['at_edge']} where a nudge flips them, {totals['at_trunc']} at a "
+          f"rounding tie), 0 against the rule ({time.perf_counter() - t0:.1f} s)")
+    return totals
+
+
+def phase_profile_reset(device: str, task: str, n: int, calls: int = 2) -> dict:
+    """``torch.profiler`` over ``calls`` runs of the env's reset branch
+    alone (its draws and ``reset_env`` for every row, which the engine
+    runs on every step): launches and device ms per run."""
+    import torch
+
+    from envpool_tpu_torch.core import rng
+
+    env = _pool(device, task, n).engine.env
+    sub = rng.split(env.keys())[1]
+    env.reset_env(env.reset_draws(sub))  # warm-up
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            env.reset_env(env.reset_draws(sub))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in _device_events(events))
+    out = {"launches": _launches(events) / calls, "device_ms": device_us / calls / 1e3}
+    print(f"profile, {task} reset branch alone at {n} envs: {out['launches']:.0f} kernel "
+          f"launches, {out['device_ms']:.3f} device ms per step")
+    return out
+
+
+def section_render(device: str, card: str, task: str, n: int, episode: int,
+                   rollout_steps: int, vs_n: int, tol: float | None) -> dict:
+    """``task`` at ``n`` envs through every entry point (the gymnasium
+    pool's episodes cut at ``episode`` steps), card vs CPU at ``vs_n`` envs
+    (:func:`phase_rule_card_vs_cpu`, ``tol`` 0: equal), a profile and a
+    functional rollout; none of it may launch K1, K2 or the PGS kernel.
+    Returns the profile's numbers and the rollout's rate."""
+    kernels = _kernel_launches()
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    seen = phase_float_adapters(device, task, n, episode)
+    lap("adapters")
+    # Episodes of 31 steps: the checked steps end them, reset, step again.
+    phase_rule_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, tol=tol,
+                           max_episode_steps=31)
+    lap("card vs CPU")
+    prof = phase_profile(device, task, n, PROFILE_STEPS, warmup=2)
+    reset = phase_profile_reset(device, task, n)
+    lap("profile")
+    steps_per_s, _ = phase_throughput(device, task, n, rollout_steps)
+    lap("rollout")
+    _check(all(k.launches == 0 for k in kernels), f"{task} launched K1, K2 or the PGS kernel")
+    print(
+        f"{task} at {n} envs on {card}: functional rollout of {rollout_steps} steps "
+        f"{steps_per_s:,.0f} env-steps/s; engine step {prof['launches']:.0f} kernel launches, "
+        f"{prof['device_ms']:.3f} device ms, idle share {prof['idle']:.3f} (the reset branch "
+        f"{reset['launches']:.0f} launches, {reset['device_ms']:.3f} device ms of it); {seen}; "
+        f"K1, K2 and the PGS kernel launched 0 times ({time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return dict(prof, steps_per_s=steps_per_s, reset_launches=reset["launches"],
+                reset_device_ms=reset["device_ms"])
+
+
+def phase_rule_checks(device: str, family: str, tasks: list[str]) -> None:
+    """A short card-vs-CPU check of each float id of a family by the rule,
+    at ``N_RENDER_SHORT`` envs: 3 checked steps after 8 warm-up steps in
+    episodes of 9 (the last step of an episode, a reset, a first step);
+    none may launch K1, K2 or the PGS kernel."""
+    kernels = _kernel_launches()
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    excused = differ = 0
+    for task in tasks:
+        v = phase_rule_card_vs_cpu(device, task, N_RENDER_SHORT, warmup=8, steps=3,
+                                   max_episode_steps=9)
+        excused, differ = excused + v["excused"], differ + v["differ"]
+    _check(all(k.launches == 0 for k in kernels), f"a {family} id launched K1, K2 or PGS")
+    print(f"short card-vs-CPU checks of {len(tasks)} {family} ids by the rule passed "
+          f"({excused} env steps excused, {differ} pixels differ in all); K1, K2 and the PGS "
+          f"kernel launched 0 times ({time.perf_counter() - t0:.1f} s)")
+
+
+def section_procgen(device: str, card: str) -> dict:
+    """MazeEasy-v0 at ``N_MAZE`` envs (card vs CPU equal in every field),
+    the other 13 grid ids exact at ``N_EXACT`` envs, the other 36 ids by
+    the rule; returns the main path's numbers."""
+    from envpool_tpu_torch.core.registry import registry
+
+    t0 = time.perf_counter()
+    ids = [t for t, (path, _, _) in registry.specs.items() if path.endswith(".procgen")]
+    stats = section_render(device, card, "MazeEasy-v0", N_MAZE, 15, 128, N_MAZE, 0.0)
+    t1 = time.perf_counter()
+    grid = [t for t in ids if t.startswith(GRID_GAMES) and t != "MazeEasy-v0"]
+    phase_exact_checks(device, [(t, {"max_episode_steps": 8}) for t in grid])
+    t2 = time.perf_counter()
+    phase_rule_checks(device, "procgen", [t for t in ids if not t.startswith(GRID_GAMES)])
+    print(f"procgen: {time.perf_counter() - t0:.1f} s (MazeEasy-v0 {t1 - t0:.1f}, grid ids "
+          f"{t2 - t1:.1f}, the other ids {time.perf_counter() - t2:.1f})")
+    return stats
+
+
+def section_vizdoom(device: str, card: str) -> dict:
+    """Basic-v1 at ``N_DOOM`` envs (float buttons; card vs CPU at
+    ``N_DOOM`` by the rule), every other vizdoom id and Basic-v1 on the
+    combined action set by the rule; returns the main path's numbers."""
+    from envpool_tpu_torch.core.registry import registry
+
+    t0 = time.perf_counter()
+    ids = [t for t, (path, _, _) in registry.specs.items() if path.endswith(".vizdoom")]
+    stats = section_render(device, card, "Basic-v1", N_DOOM, 10, 64, N_DOOM, None)
+    t1 = time.perf_counter()
+    phase_rule_checks(device, "vizdoom", [t for t in ids if t != "Basic-v1"])
+    # bench.py's sweep row steps Basic-v1 on the combined action set.
+    phase_rule_card_vs_cpu(device, "Basic-v1", N_RENDER_SHORT, warmup=8, steps=3,
+                           max_episode_steps=9, use_combined_action=True)
+    print(f"vizdoom: {time.perf_counter() - t0:.1f} s (Basic-v1 {t1 - t0:.1f}, the other "
+          f"ids {time.perf_counter() - t1:.1f})")
+    return stats
+
+
 def _pole_outline(states, tol: float = 1e-3):
     """``[N, 400, 600]``: the pixels of CartPole frames that lie within
     ``tol`` pixel of the pole's outline, in float64 (where a float32 cos or
@@ -2032,27 +2241,24 @@ def phase_surface_checks(device: str) -> None:
 
 
 def phase_exact_checks(device: str, checks: list[tuple[str, dict]]) -> None:
-    """A short card-vs-CPU check of each toy_text id and of Dummy-v0 (with
-    its make arguments): ``N_EXACT`` envs, 8 checked steps after 12 warm-up
-    steps, every field equal (toy_text's and Dummy's state is integer and
-    their float fields exact), with resets among the checked steps; none
-    may launch K1 or K2."""
-    from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
-    from envpool_tpu_torch.ops.cuda_machine import machine_frame
-
+    """A short card-vs-CPU check of each toy_text id, of Dummy-v0 and of
+    procgen's grid ids (with its make arguments): ``N_EXACT`` envs, 8
+    checked steps after 12 warm-up steps, every field equal (their state
+    is integer and their float fields exact), with resets among the
+    checked steps; none may launch K1, K2 or the PGS kernel."""
+    kernels = _kernel_launches()
     t0 = time.perf_counter()
-    machine_frame.launches = 0
-    fused_pool_resize.launches = 0
+    for k in kernels:
+        k.launches = 0
     for task, kwargs in checks:
         print(f"  {task} {kwargs}:")
         v = phase_float_card_vs_cpu(device, task, N_EXACT, warmup=12, steps=8, tol=0.0,
                                     **kwargs)
         _check(v["worst"] == 0.0, f"{task}: card and CPU differ")
         _check(v["resets"] > 0, f"{task}: no reset among the checked steps")
-    _check(fused_pool_resize.launches == machine_frame.launches == 0,
-           "a toy_text or Dummy id launched K1 or K2")
-    print(f"exact card-vs-CPU checks of {len(checks)} toy_text and Dummy pools passed; "
-          f"K1 and K2 launched 0 times ({time.perf_counter() - t0:.1f} s)")
+    _check(all(k.launches == 0 for k in kernels), "an exact-checked id launched K1, K2 or PGS")
+    print(f"exact card-vs-CPU checks of {len(checks)} pools passed; K1, K2 and the PGS "
+          f"kernel launched 0 times ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_short_checks(device: str, family: str, tasks: list[str],
@@ -2191,6 +2397,10 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] the solver and the PGS kernel done")
     section_pixels(device, card)
     print(f"[{time.perf_counter() - t_start:.1f} s] from_pixels done")
+    section_procgen(device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] procgen done")
+    section_vizdoom(device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] vizdoom done")
     phase_exact_checks(device, exact)
     phase_surface_checks(device)
 

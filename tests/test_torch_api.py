@@ -66,7 +66,8 @@ def test_registry_surface():
         if t in (TASK, "Dummy-v0")
         or t.startswith("Machine2600")
         or registry.specs[t][0].endswith(
-            (".classic_control", ".mujoco_gym", ".mujoco_dmc", ".toy_text"))
+            (".classic_control", ".mujoco_gym", ".mujoco_dmc", ".toy_text", ".procgen",
+             ".vizdoom"))
     ]
     assert envpool_tpu_torch.list_all_envs() == ported
     with pytest.raises(ValueError):

@@ -357,9 +357,10 @@ def test_ported_ids():
 
 
 # Every dmc id is ported: the ids of the next families of ``bench.py``'s
-# sweep (procgen, vizdoom, minigrid, pgx, highway) are not.
+# sweep (minigrid, pgx, highway) are not.
 @pytest.mark.parametrize(
-    "task", ["MazeEasy-v0", "Basic-v1", "MiniGrid-Empty-8x8-v0", "TicTacToe-v1", "highway-v0"])
+    "task", ["ConnectFour-v1", "merge-v0", "MiniGrid-Empty-8x8-v0", "TicTacToe-v1",
+             "highway-v0"])
 def test_unported_id_raises(task):
     assert task in jax_registry.specs
     with pytest.raises(ValueError, match="is not supported"):
