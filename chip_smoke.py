@@ -2006,10 +2006,12 @@ def phase_profile_reset(device: str, task: str, n: int, calls: int = 2) -> dict:
 
 
 def section_render(device: str, card: str, task: str, n: int, episode: int,
-                   rollout_steps: int, vs_n: int, tol: float | None) -> dict:
+                   rollout_steps: int, vs_n: int, tol: float | None,
+                   exact_state: bool = False) -> dict:
     """``task`` at ``n`` envs through every entry point (the gymnasium
     pool's episodes cut at ``episode`` steps), card vs CPU at ``vs_n`` envs
-    (:func:`phase_rule_card_vs_cpu`, ``tol`` 0: equal), a profile and a
+    (:func:`phase_rule_card_vs_cpu`, ``tol`` 0: equal; with
+    ``exact_state``, :func:`phase_state_card_vs_cpu`), a profile and a
     functional rollout; none of it may launch K1, K2 or the PGS kernel.
     Returns the profile's numbers and the rollout's rate."""
     kernels = _kernel_launches()
@@ -2024,8 +2026,11 @@ def section_render(device: str, card: str, task: str, n: int, episode: int,
     seen = phase_float_adapters(device, task, n, episode)
     lap("adapters")
     # Episodes of 31 steps: the checked steps end them, reset, step again.
-    phase_rule_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, tol=tol,
-                           max_episode_steps=31)
+    if exact_state:
+        phase_state_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, max_episode_steps=31)
+    else:
+        phase_rule_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, tol=tol,
+                               max_episode_steps=31)
     lap("card vs CPU")
     prof = phase_profile(device, task, n, PROFILE_STEPS, warmup=2)
     reset = phase_profile_reset(device, task, n)
@@ -2100,6 +2105,146 @@ def section_vizdoom(device: str, card: str) -> dict:
     print(f"vizdoom: {time.perf_counter() - t0:.1f} s (Basic-v1 {t1 - t0:.1f}, the other "
           f"ids {time.perf_counter() - t1:.1f})")
     return stats
+
+
+# MiniGrid-Empty-8x8-v0 (bench.py:205's width) and BabyAI-BossLevel-v0 at
+# N_MINIGRID envs; every other minigrid id exact at N_MINIGRID_SHORT envs
+# in episodes of 1 step: from a reset, a checked step that ends every
+# episode and one that resets every env.
+N_MINIGRID = 8192
+N_MINIGRID_SHORT = 64
+N_RENDERED = 256
+
+
+def phase_state_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: int,
+                            **make_kwargs) -> dict:
+    """After ``warmup`` random steps on the card, ``steps`` engine steps
+    each taken on the card and on the CPU from the same pool state and
+    action: the new pool state (the env state with it) and the timestep
+    equal in every field.  Returns the resets and terminations seen."""
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch.core.engine import Engine, PoolState, _tree_map
+
+    card = _pool(device, task, n, **make_kwargs)
+    cpu = Engine(envpool_tpu_torch.make_spec(task, num_envs=n, seed=SEED, device="cpu",
+                                             **make_kwargs).env)
+    eng = card.engine
+    gen = torch.Generator().manual_seed(SEED)
+    sample = _sampler(_spec(card), n, "cpu")
+    ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
+    for _ in range(warmup):
+        ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
+    fields = ("env_state", "key", "elapsed", "autoreset", "full_reset")
+    resets = terms = 0
+    t0 = time.perf_counter()
+    for t in range(steps):
+        act = sample(gen)
+        ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), getattr(ps, f)) for f in fields))
+        ps, got = eng.step(ps, {"action": act.to(device)})
+        cps, want = cpu.step(ps_cpu, {"action": act})
+        for f in fields:
+            _check(_tree_equal(_tree_map(lambda x: x.cpu(), getattr(ps, f)), getattr(cps, f)),
+                   f"{task}: card and CPU differ in {f} at step {t}")
+        for k, w in want.items():
+            _check(torch.equal(got[k].cpu(), w), f"{task}: card and CPU differ in {k} at "
+                   f"step {t}")
+        resets += int((want["step_type"] == 0).sum())
+        terms += int((want["done"] & ~want["trunc"]).sum())
+    print(f"  {task}: card vs CPU, {n} envs x {steps} steps from the same states (after "
+          f"{warmup} warm-up steps; {resets} resets, {terms} terminations): state and "
+          f"timestep equal in every field ({time.perf_counter() - t0:.1f} s)")
+    return {"resets": resets, "terms": terms}
+
+
+def phase_grid_render(device: str, task: str, n: int, steps: int) -> None:
+    """``render()`` of ``N_RENDERED`` envs of a pool stepped ``steps``
+    random steps on the card, equal to the CPU's render of the same
+    states; the agent's cell is marked."""
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch import interop
+
+    card = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=n, seed=SEED,
+                                  device=device)
+    cpu = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=n, seed=SEED,
+                                 device="cpu")
+    card.reset()
+    sample = _sampler(_spec(card), n, "cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    for _ in range(steps):
+        card.step(sample(gen).numpy())
+    cpu._state = interop.pool_state_from_numpy(interop.pool_state_to_numpy(card.pool_state),
+                                               "cpu")
+    ids = np.arange(N_RENDERED)
+    got, want = card.render(ids), cpu.render(ids)
+    _check(got.shape == want.shape == (N_RENDERED, *card._env.render_size, 3)
+           and got.dtype == np.uint8, f"{task} render shape {got.shape}")
+    _check(bool((got == want).all()), f"{task}: card and CPU frames differ")
+    pos = cpu.pool_state.env_state["pos"].numpy()[ids]
+    _check(bool((got[ids, pos[:, 1] * 8, pos[:, 0] * 8] == (255, 0, 0)).all()),
+           f"{task}: the agent's cell is not marked")
+    print(f"{task} render() on the card: {N_RENDERED} of {n} envs, {got.shape} "
+          f"{got.dtype}, equal to the CPU's render of the same states")
+
+
+def build_wfc_banks() -> float:
+    """Solve the map bank of every registered WFC id (numpy, cached for the
+    process, as each WFC pool asks for it); returns the seconds taken."""
+    from envpool_tpu_torch.core.registry import registry
+    from envpool_tpu_torch.envs.minigrid import wfc
+
+    t0 = time.perf_counter()
+    for _, cls, kwargs in registry.specs.values():
+        if cls == "WFCEnv":
+            config = dict(wfc.WFCEnv.DEFAULT_CONFIG, **kwargs)
+            wfc._map_bank(str(config["wfc_preset"]), int(config["size"]),
+                          int(config["bank_size"]))
+    return time.perf_counter() - t0
+
+
+def section_minigrid(device: str, card: str) -> dict:
+    """MiniGrid-Empty-8x8-v0 at ``N_MINIGRID`` envs through every entry
+    point (card vs CPU equal in every field of the state and the timestep;
+    ``render()``), BabyAI-BossLevel-v0 at ``N_MINIGRID`` (a profile of the
+    step and of its reset branch alone, a rollout, card vs CPU equal in
+    every field), and every other minigrid id exact at
+    ``N_MINIGRID_SHORT``; returns the main paths' numbers."""
+    from envpool_tpu_torch.core.registry import registry
+
+    t0 = time.perf_counter()
+    ids = [t for t, (path, _, _) in registry.specs.items() if path.endswith(".minigrid")]
+    empty = section_render(device, card, "MiniGrid-Empty-8x8-v0", N_MINIGRID, 15, 128,
+                           N_MINIGRID, 0.0, exact_state=True)
+    phase_grid_render(device, "MiniGrid-Empty-8x8-v0", N_MINIGRID, 20)
+    t1 = time.perf_counter()
+    boss = "BabyAI-BossLevel-v0"
+    kernels = _kernel_launches()
+    for k in kernels:
+        k.launches = 0
+    prof = phase_profile(device, boss, N_MINIGRID, PROFILE_STEPS, warmup=2)
+    reset = phase_profile_reset(device, boss, N_MINIGRID)
+    steps_per_s, _ = phase_throughput(device, boss, N_MINIGRID, 16)
+    # Episodes of 2 steps: the second checked step resets every env.
+    phase_state_card_vs_cpu(device, boss, N_MINIGRID, 1, 2, max_episode_steps=2)
+    phase_grid_render(device, boss, N_RENDERED, 5)
+    _check(all(k.launches == 0 for k in kernels), f"{boss} launched K1, K2 or the PGS kernel")
+    print(f"{boss} at {N_MINIGRID} envs on {card}: functional rollout of 16 steps "
+          f"{steps_per_s:,.0f} env-steps/s; engine step {prof['launches']:.0f} kernel launches, "
+          f"{prof['device_ms']:.3f} device ms, idle share {prof['idle']:.3f} (the reset branch "
+          f"{reset['launches']:.0f} launches, {reset['device_ms']:.3f} device ms of it); K1, K2 "
+          f"and the PGS kernel launched 0 times ({time.perf_counter() - t1:.1f} s)")
+    t2 = time.perf_counter()
+    short = [(t, {"max_episode_steps": 1}) for t in ids
+             if t not in ("MiniGrid-Empty-8x8-v0", boss)]
+    phase_exact_checks(device, short, n=N_MINIGRID_SHORT, warmup=0, steps=2, state=True)
+    print(f"minigrid: {time.perf_counter() - t0:.1f} s (MiniGrid-Empty-8x8-v0 {t1 - t0:.1f}, "
+          f"{boss} {t2 - t1:.1f}, the other {len(short)} ids {time.perf_counter() - t2:.1f})")
+    return {"empty": empty, "boss": dict(prof, steps_per_s=steps_per_s,
+                                         reset_launches=reset["launches"],
+                                         reset_device_ms=reset["device_ms"])}
 
 
 def _pole_outline(states, tol: float = 1e-3):
@@ -2240,21 +2385,27 @@ def phase_surface_checks(device: str) -> None:
     print(f"surface checks passed ({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_exact_checks(device: str, checks: list[tuple[str, dict]]) -> None:
-    """A short card-vs-CPU check of each toy_text id, of Dummy-v0 and of
-    procgen's grid ids (with its make arguments): ``N_EXACT`` envs, 8
-    checked steps after 12 warm-up steps, every field equal (their state
-    is integer and their float fields exact), with resets among the
-    checked steps; none may launch K1, K2 or the PGS kernel."""
+def phase_exact_checks(device: str, checks: list[tuple[str, dict]], n: int = N_EXACT,
+                       warmup: int = 12, steps: int = 8, state: bool = False) -> None:
+    """A short card-vs-CPU check of each toy_text id, of Dummy-v0, of
+    procgen's grid ids and of the minigrid ids (with its make arguments):
+    ``n`` envs, ``steps`` checked steps after ``warmup`` warm-up steps,
+    every field of the timestep equal (their state is integer and their
+    float fields exact), and with ``state`` every field of the env state
+    too (:func:`phase_state_card_vs_cpu`), with resets among the checked
+    steps; none may launch K1, K2 or the PGS kernel."""
     kernels = _kernel_launches()
     t0 = time.perf_counter()
     for k in kernels:
         k.launches = 0
     for task, kwargs in checks:
-        print(f"  {task} {kwargs}:")
-        v = phase_float_card_vs_cpu(device, task, N_EXACT, warmup=12, steps=8, tol=0.0,
-                                    **kwargs)
-        _check(v["worst"] == 0.0, f"{task}: card and CPU differ")
+        if state:
+            v = phase_state_card_vs_cpu(device, task, n, warmup, steps, **kwargs)
+        else:
+            print(f"  {task} {kwargs}:")
+            v = phase_float_card_vs_cpu(device, task, n, warmup=warmup, steps=steps,
+                                        tol=0.0, **kwargs)
+            _check(v["worst"] == 0.0, f"{task}: card and CPU differ")
         _check(v["resets"] > 0, f"{task}: no reset among the checked steps")
     _check(all(k.launches == 0 for k in kernels), "an exact-checked id launched K1, K2 or PGS")
     print(f"exact card-vs-CPU checks of {len(checks)} pools passed; K1, K2 and the PGS "
@@ -2366,12 +2517,15 @@ def main() -> int:
              if path.endswith(".toy_text") and t != "FrozenLake8x8-v1"]
     exact += [("Dummy-v0", {"max_episode_steps": 8, "max_num_players": p}) for p in (1, 2)]
 
-    # Build the three kernels at once (one nvcc each).
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    # Build the three kernels at once (one nvcc each), and meanwhile solve
+    # the WFC map banks the minigrid section's pools read.
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(k.build) for k in (fused_pool_resize, machine_frame, pgs_solve)]
+        banks = pool.submit(build_wfc_banks)
         k1_build, k2_build, pgs_build = (b.result() for b in builds)
+        banks_s = banks.result()
     print(f"K1 build: {k1_build:.1f} s; K2 build: {k2_build:.1f} s; PGS build: "
-          f"{pgs_build:.1f} s (in parallel)")
+          f"{pgs_build:.1f} s; the six WFC banks: {banks_s:.1f} s (in parallel)")
 
     stats, k1_launches = section_pong(device, card)
     print(f"[{time.perf_counter() - t_start:.1f} s] PongLite-v5 and K1 done")
@@ -2401,6 +2555,8 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] procgen done")
     section_vizdoom(device, card)
     print(f"[{time.perf_counter() - t_start:.1f} s] vizdoom done")
+    section_minigrid(device, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] minigrid done")
     phase_exact_checks(device, exact)
     phase_surface_checks(device)
 

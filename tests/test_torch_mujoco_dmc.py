@@ -357,9 +357,9 @@ def test_ported_ids():
 
 
 # Every dmc id is ported: the ids of the next families of ``bench.py``'s
-# sweep (minigrid, pgx, highway) are not.
+# sweep (pgx, highway) and of box2d are not.
 @pytest.mark.parametrize(
-    "task", ["ConnectFour-v1", "merge-v0", "MiniGrid-Empty-8x8-v0", "TicTacToe-v1",
+    "task", ["ConnectFour-v1", "merge-v0", "LunarLander-v3", "TicTacToe-v1",
              "highway-v0"])
 def test_unported_id_raises(task):
     assert task in jax_registry.specs
