@@ -35,9 +35,16 @@ vizdoom's Basic-v1 at 1024 envs (card vs CPU by the rule of
 ``envpool_tpu_torch/ops/thresholds.py``), each through every entry point,
 profiled (the reset branch alone too) and timed, with every other procgen
 grid id an exact check at 256 envs and every other procgen and vizdoom id
-a check by the rule at 64 envs, and the engine's remaining surface on the
-card: ``render()``, ``save_state`` /
-``load_state``, ``record_dir`` and two wrappers.  It also times K2
+a check by the rule at 64 envs, minigrid's MiniGrid-Empty-8x8-v0 and
+BabyAI-BossLevel-v0 at 8192 envs (every other minigrid id exact at 64),
+the board games' TicTacToe-v1 and Go19x19-v1 at 8192 envs (card vs CPU
+equal in every field, by legal moves; every other board id exact at 64
+across a reset), and the engine's remaining surface on the card:
+``render()``, ``save_state`` / ``load_state``, ``record_dir`` and two
+wrappers.  The CPU's side of the physics short checks runs in a worker
+process while the card goes on with the next id, and the main paths'
+card-vs-CPU phases run at ``N_MAIN_VS`` envs (CartPole-v1 at its full
+width); neither changes a check's rule.  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
 holds it to its chain bound: each frame's most emulated instructions on
 one machine times one dependent shared-memory load, measured on the card.
@@ -73,6 +80,13 @@ TIE_RULE = "equal everywhere except exact .5 ties, where |diff| <= 1"
 N_CARTPOLE = 16384
 N_CHEETAH = 8192
 N_ANT = N_HUMANOID = 8192
+# The physics main paths' card-vs-CPU phases run at N_MAIN_VS envs (the
+# first envs of the same seeds): with 3 checked steps each share that
+# check_shares reads comes from 3072 env steps, N_SHORT_FREE's reasoning.
+# Their adapters, profiles and rollouts stay at full width.  CartPole-v1
+# keeps its 16384 envs: its intermittent card-vs-CPU failure was seen at
+# that width (ROADMAP Queue 3).
+N_MAIN_VS = 1024
 # The short card-vs-CPU check of the other Gym-MuJoCo ids: 256 envs, and
 # 1024 for those with a free base, whose float32 steps most often land past
 # the tolerance (so that each id's share is read from 3072 env steps).
@@ -182,6 +196,79 @@ def host_cpu() -> str:
             f"{errs[0]:.3g}, {errs[1]:.3g} of float64 on [-0.3, 0.3]")
 
 
+def say(line: str) -> None:
+    """One line to stdout in one write (the CPU's worker process writes
+    there too)."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
+# The results of one family's short checks in CpuSide's worker process, for
+# family_checks.
+_FAMILY_RESULTS: dict = {}
+
+
+def _cpu_worker(threads: int) -> None:
+    """The worker process's start: the main process's count of CPU threads,
+    so that the CPU's float32 reductions split as they would there, and
+    its settings of the card (no TF32)."""
+    import torch
+
+    torch.set_num_threads(threads)
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class CpuSide:
+    """One worker process for the CPU's side of the physics short checks
+    and its float64 arbitration (:func:`cpu_side`, from
+    :func:`phase_float_card_vs_cpu` with ``later``: the CPU's steps, and
+    the card's float64 step and substeps, in a CUDA context of its own),
+    which runs while the main process goes on with the card's work: the
+    checks, their rules, their inputs and the order of their ``_check``
+    calls stay as they are; only when and where they are computed changes.
+    (A thread would share the GIL with the card's launches, which are
+    host-bound: both slowed down.)  Jobs run one at a time in the
+    order they were submitted and write their lines as they run.
+    :meth:`poll` re-raises the first failure of a finished job, :meth:`drain`
+    waits for every job and re-raises the first failure, with its own
+    message; leaving its ``with`` block stops the worker (and drops the
+    jobs not yet begun)."""
+
+    def __init__(self):
+        import multiprocessing
+
+        import torch
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"), initializer=_cpu_worker,
+            initargs=(torch.get_num_threads(),))
+        self.jobs: list = []
+
+    def submit(self, fn, *args, **kwargs):
+        job = self.pool.submit(fn, *args, **kwargs)
+        self.jobs.append(job)
+        return job
+
+    def poll(self) -> None:
+        for job in self.jobs:
+            if job.done() and job.exception() is not None:
+                raise job.exception()
+
+    def drain(self) -> float:
+        """Wait for every job; returns the seconds waited."""
+        t0 = time.perf_counter()
+        for job in self.jobs:
+            job.result()
+        return time.perf_counter() - t0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.pool.shutdown(cancel_futures=True)
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
@@ -202,13 +289,13 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _sampler(spec, n: int, device):
+def _sampler(spec, n: int, device, players: int = 1):
     """``sample(gen)``: random actions of an action spec for ``n`` envs on
-    ``device``, integers over a discrete spec's range, else floats uniform
-    within its bounds."""
+    ``device`` (one row per player of a per-player spec), integers over a
+    discrete spec's range, else floats uniform within its bounds."""
     import torch
 
-    shape = (n, *spec.shape)
+    shape = (n, *spec.static_shape(players))
     if spec.is_discrete:
         lo, hi = int(spec.minimum), int(spec.maximum) + 1
         return lambda gen: torch.randint(
@@ -220,6 +307,39 @@ def _sampler(spec, n: int, device):
 
 def _spec(pool):
     return pool.spec.action_array_spec["action"]
+
+
+# The board games' legal-move masks; a share of uniform actions stays in
+# the board ids' sampling, so that the illegal-move path runs too.
+LEGAL_KEYS = ("info:legal_moves", "info:legal_action_mask")
+LEGAL_UNIFORM_SHARE = 0.05
+
+
+def _legal_sampler(spec, n: int, device, players: int = 1):
+    """``sample(gen, ts)``: actions uniform over each env's legal moves in
+    the timestep ``ts`` (its ``LEGAL_KEYS`` mask), drawn from the same
+    ``torch.Generator`` as :func:`_sampler`'s, a share
+    ``LEGAL_UNIFORM_SHARE`` of them uniform over the action space; uniform
+    before the first timestep or where the game has no mask.  Under the
+    per-player protocol every player's row holds the action (the games read
+    the mover's row, or row 0)."""
+    import torch
+
+    uniform = _sampler(spec, n, device, players)
+
+    def sample(gen, ts=None):
+        act = uniform(gen)
+        mask = next((ts[k] for k in LEGAL_KEYS if k in ts), None) if ts is not None else None
+        if mask is None:
+            return act
+        mask = mask.to(device)
+        score = torch.where(mask, torch.rand(mask.shape, generator=gen, device=device), -1.0)
+        legal = score.argmax(1).to(act.dtype)
+        share = torch.rand(n, generator=gen, device=device) < LEGAL_UNIFORM_SHARE
+        pick = torch.where(share, act.reshape(n, -1)[:, 0], legal)
+        return pick if act.dim() == 1 else pick[:, None].expand_as(act).contiguous()
+
+    return sample
 
 
 def _pong_frames(n: int, device, rgb: bool):
@@ -439,25 +559,35 @@ def _pool(device: str, task: str, n: int, **make_kwargs):
     )
 
 
-def phase_throughput(device: str, task: str, n: int, steps: int,
-                     **make_kwargs) -> tuple[float, int]:
+def phase_throughput(device: str, task: str, n: int, steps: int, depth: int = 0,
+                     legal: bool = False, **make_kwargs) -> tuple[float, int]:
     """Functional rollout as ``bench.py`` runs it (reset, then ``steps``
-    random steps); returns (env-steps/s, K1 launches in the timed run)."""
+    random steps, by legal moves with ``legal``; with ``depth``, ``depth +
+    steps`` steps timed from the ``depth``-th on); returns (env-steps/s,
+    K1 launches in the timed run)."""
     import torch
 
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
 
     pool = _pool(device, task, n, **make_kwargs)
-    sample = _sampler(_spec(pool), n, device)
-    run = pool.engine.make_rollout(
-        lambda ts, gen: {"action": sample(gen)}, steps, collect=False)
+    draw = _legal_sampler(_spec(pool), n, device) if legal else _sampler(_spec(pool), n, device)
+    calls, t0 = [0], [0.0]
+
+    def policy(ts, gen):
+        if depth and calls[0] % (depth + steps) == depth:  # the timed steps begin
+            torch.cuda.synchronize()
+            t0[0] = time.perf_counter()
+        calls[0] += 1
+        return {"action": draw(gen, ts) if legal else draw(gen)}
+
+    run = pool.engine.make_rollout(policy, depth + steps, collect=False)
     ps, _ = run(pool.pool_state, SEED)  # warm-up
     torch.cuda.synchronize()
     before = fused_pool_resize.launches
-    t0 = time.perf_counter()
+    t0[0] = time.perf_counter()
     ps, ts = run(ps, SEED + 1)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0[0]
     _check(bool((ts["step_type"] >= 0).all()), "rollout output")
     for k, v in ts.items():
         if k == "obs" or k.startswith("obs:"):
@@ -482,32 +612,33 @@ def _launches(events) -> int:
 
 
 def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
-                  kernel: str | None = None, **make_kwargs) -> dict:
-    """``torch.profiler`` over ``steps`` engine steps after ``warmup`` ones:
-    device time, idle share, launches per step, the kernels that take the
-    most time and, given a kernel's name, its share of the device time.
-    Returns the first three."""
+                  kernel: str | None = None, legal: bool = False, **make_kwargs) -> dict:
+    """``torch.profiler`` over ``steps`` engine steps after ``warmup`` ones
+    (by legal moves with ``legal``, the sampler's launches among the
+    step's): device time, idle share, launches per step, the kernels that
+    take the most time and, given a kernel's name, its share of the device
+    time.  Returns the first three and the last pool state (``ps``)."""
     import torch
 
     pool = _pool(device, task, n, **make_kwargs)
     eng = pool.engine
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    sample = _sampler(_spec(pool), n, device)
+    draw = _legal_sampler(_spec(pool), n, device) if legal else _sampler(_spec(pool), n, device)
 
-    def act():
-        return {"action": sample(gen)}
+    def act(ts):
+        return {"action": draw(gen, ts) if legal else draw(gen)}
 
-    ps, _ = eng.reset(pool.pool_state, torch.ones(n, dtype=torch.bool, device=device))
+    ps, ts = eng.reset(pool.pool_state, torch.ones(n, dtype=torch.bool, device=device))
     for _ in range(warmup):
-        ps, _ = eng.step(ps, act())
+        ps, ts = eng.step(ps, act(ts))
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            ps, _ = eng.step(ps, act())
+            ps, ts = eng.step(ps, act(ts))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -535,7 +666,7 @@ def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
               f"{e.count / steps:6.0f}  {e.key[:90]}")
     return {"device_ms": device_us / steps / 1e3,
             "idle": 1 - device_us / 1e6 / wall,
-            "launches": launches / steps}
+            "launches": launches / steps, "ps": ps}
 
 
 # ---------------------------------------------------------------------------
@@ -922,7 +1053,40 @@ def _quantiles(x) -> str:
     return "/".join(f"{float(v):.3g}" for v in np.quantile(x.numpy(), [0.99, 0.999, 1.0]))
 
 
-def _physics_crossed(env, ps, act, device):
+def _substep_model(env):
+    """The env's model with the timestep of one substep, and the dtype its
+    physics steps in."""
+    import dataclasses
+
+    import torch
+
+    model = dataclasses.replace(env.model, timestep=env.model.timestep / env.substeps)
+    return model, torch.promote_types(torch.float32, env.physics_dtype or torch.float32)
+
+
+def _physics_state(ps) -> tuple:
+    """``(qpos, qvel)`` of a pool state, on the CPU."""
+    return tuple(ps.env_state[k].cpu() for k in ("qpos", "qvel"))
+
+
+def card_sides(env, ps, act, device) -> list:
+    """The card's side of :func:`_physics_crossed`: the switch sides
+    (``dynamics.switch_sides``) after each substep but the last of every
+    row of a pool state ``ps`` on the CPU, stepped one substep at a time on
+    the card, as CPU tensors."""
+    from envpool_tpu_torch.physics import dynamics
+
+    model, dtype = _substep_model(env)
+    cq, cqd = (ps.env_state[k].to(dtype).to(device) for k in ("qpos", "qvel"))
+    cact = env.control(ps.env_state, act).to(dtype).to(device)
+    out = []
+    for _ in range(env.frame_skip * env.substeps - 1):
+        cq, cqd = dynamics.step(model, cq, cqd, cact, 1, env.contact)
+        out.append(dynamics.switch_sides(model, cq, env.contact).cpu())
+    return out
+
+
+def _physics_crossed(env, ps, act, sides):
     """The CPU's env step of every row of a pool state, taken one substep
     at a time, and ``[N]`` True where the card's and the CPU's substeps put
     a stepped env on different sides of a switch of the penalty forces (a
@@ -931,27 +1095,20 @@ def _physics_crossed(env, ps, act, device):
     ``dynamics.switch_sides``): the forces
     jump there, so the two may part by far more than rounding.  Returns
     ``((qpos, qvel), crossed)``; the step is the env's ``physics_step``
-    bit for bit."""
+    bit for bit.  The card's sides are :func:`card_sides`'."""
     import torch
-
-    import dataclasses
 
     from envpool_tpu_torch.physics import dynamics
 
-    # one substep at a time: a model whose timestep is the substep's
-    model = dataclasses.replace(env.model, timestep=env.model.timestep / env.substeps)
-    dtype = torch.promote_types(torch.float32, env.physics_dtype or torch.float32)
+    model, dtype = _substep_model(env)
     q, qd = (ps.env_state[k].to(dtype) for k in ("qpos", "qvel"))
     ctrl = env.control(ps.env_state, act).to(dtype)
-    cq, cqd, cact = q.to(device), qd.to(device), ctrl.to(device)
     crossed = torch.zeros(q.shape[0], dtype=torch.bool)
     for i in range(env.frame_skip * env.substeps):
         q, qd = dynamics.step(model, q, qd, ctrl, 1, env.contact)
         if i + 1 == env.frame_skip * env.substeps:
             break  # the last substep's sides do not change the step
-        cq, cqd = dynamics.step(model, cq, cqd, cact, 1, env.contact)
-        sides = dynamics.switch_sides(model, cq, env.contact).cpu()
-        crossed |= (sides != dynamics.switch_sides(model, q, env.contact)).any(1)
+        crossed |= (sides[i] != dynamics.switch_sides(model, q, env.contact)).any(1)
     return (q.float(), qd.float()), crossed & ~ps.autoreset
 
 
@@ -965,7 +1122,8 @@ def _tree_equal(a, b) -> bool:
 
 def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                             steps: int, tol: float, spread: bool = False,
-                            warm: dict | None = None, **make_kwargs) -> dict:
+                            warm: dict | None = None, later: CpuSide | None = None,
+                            family: str | None = None, **make_kwargs):
     """After ``warmup`` random steps on the card, ``steps`` engine steps
     each taken on the card and on the CPU from the same pool state and
     action: float fields within ``tol * (1 + |cpu|)``, the rest equal
@@ -1004,9 +1162,19 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     which never terminate within the warm-up, differ in reward and obs
     alone).
 
+    The card takes its warm-up and checked steps first; the CPU's side of
+    every checked step and the arbitration on the card (the float64 step,
+    the switch sides of the card's substeps) follow (:func:`cpu_side`), in
+    ``later``'s worker process if it is given (with :func:`check_shares`
+    there, the result kept for the short checks' ``family``), while the
+    caller goes on with the card's work.  The line it prints ends with the
+    seconds of the card's warm-up, of its checked steps and of the CPU's
+    side.
+
     Returns the counts it printed and each stepped env's distance to
     float64 on the card and on the CPU, of its state and of its obs, for
-    :func:`check_shares` and :func:`check_f64_parity`."""
+    :func:`check_shares` and :func:`check_f64_parity`; with ``later``, the
+    future of its job."""
     import torch
 
     import envpool_tpu_torch
@@ -1023,7 +1191,7 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
     sample = _sampler(_spec(card), n, "cpu")
     ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
     physics = isinstance(env, PhysicsEnv)
-    may_diverge = type(env).__name__ in DIVERGING_CLASSES
+    t0 = time.perf_counter()
     key = physics and (type(env), env.model, env.contact, env.substeps,
                        env.frame_skip, env.physics_dtype)
     shared = warm.get(key) if warm is not None and physics else None
@@ -1037,6 +1205,8 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
             ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
         if warm is not None and physics:
             warm[key] = (start, ps)
+    torch.cuda.synchronize()
+    card_s = [time.perf_counter() - t0]
     matmul = torch.backends.cuda.matmul
     tf32_seen = set()
     solve = dynamics.spd_solve
@@ -1052,6 +1222,64 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         not_spd[0] += int(((~torch.isfinite(x)).any(-1) & finite_in).sum())
         return x
 
+    # The card's side of each checked step: the step itself (a caller that
+    # allows TF32, the spy on the solve), its timestep, and for the physics
+    # its new qpos and qvel.
+    card_steps = []
+    for t in range(steps):
+        act = sample(gen)
+        ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), f) for f in (
+            ps.env_state, ps.key, ps.elapsed, ps.autoreset, ps.full_reset)))
+        dynamics.spd_solve = spy
+        matmul.fp32_precision = "tf32"  # a caller that allows TF32
+        try:
+            ps, got = eng.step(ps, {"action": act.to(device)})
+            torch.cuda.synchronize()
+            restored = matmul.fp32_precision == "tf32"
+        finally:
+            dynamics.spd_solve = solve
+            matmul.fp32_precision = "ieee"
+        got = {k: v.cpu() for k, v in got.items()}
+        card_steps.append((act, ps_cpu, got, restored, _physics_state(ps) if physics else None))
+
+    card_s.append(time.perf_counter() - t0 - card_s[0])
+    args = (task, n, warmup, steps, tol, spread, make_kwargs, card_steps, tf32_seen, not_spd[0],
+            card_s)
+    if later is None:
+        return cpu_side(*args, device=device, cpu=cpu, eng=eng)
+    return later.submit(cpu_side, *args, device=device, family=family)
+
+
+def cpu_side(task: str, n: int, warmup: int, steps: int, tol: float, spread: bool,
+             make_kwargs: dict, card_steps: list, tf32_seen: set, not_spd: int,
+             card_s: list, device: str = "cuda", cpu=None, eng=None,
+             family: str | None = None):
+    """The CPU's side of :func:`phase_float_card_vs_cpu`: each checked step
+    of the card (``card_steps``: the action, the pool state before it on
+    the CPU, the card's timestep, whether the step restored the caller's
+    TF32 flag, and for the physics the card's new qpos/qvel, which it
+    arbitrates with a float64 step and the switch sides of the card's
+    substeps, both on ``device``) held to the CPU's, every ``_check`` in
+    its order; returns the counts and distances it printed (``card_s``:
+    the seconds of the card's warm-up and checked steps, for its line).
+    In the caller's process ``cpu`` is the caller's CPU engine and ``eng``
+    the card's (a failure report steps the card again); in
+    :class:`CpuSide`'s worker process it builds its own CPU engine, runs
+    :func:`check_shares` on its result at once and keeps the result for
+    the family's :func:`family_checks`."""
+    import torch
+
+    import envpool_tpu_torch
+    from envpool_tpu_torch.core.engine import Engine, PoolState
+    from envpool_tpu_torch.envs.physics_env import PhysicsEnv
+
+    t0 = time.perf_counter()
+    if cpu is None:
+        cpu = Engine(envpool_tpu_torch.make_spec(task, num_envs=n, seed=SEED, device="cpu",
+                                                 **make_kwargs).env)
+    env = cpu.env
+    physics = isinstance(env, PhysicsEnv)
+    may_diverge = type(env).__name__ in DIVERGING_CLASSES
     rel = _rel
     # The card's largest distance to float64 over its limit, of the envs
     # past the tolerance: state, obs.
@@ -1066,34 +1294,23 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
         ratios[which] = max(ratios[which], float((card64 / limit).max()))
         return card64 <= limit
 
+
     worst, skipped, flips, resets, arbitrated, terms = 0.0, 0, 0, 0, 0, 0
     n_diverged = 0
     f64 = (0.0, 0.0, 0.0)  # worst qpos/qvel row: card-cpu, card-f64, cpu-f64
     # Each stepped env's distance to float64: its state, and its obs.
     to_f64 = {"card": [], "cpu": [], "card_obs": [], "cpu_obs": []}
     obs_arbitrated = 0
-    for t in range(steps):
-        act = sample(gen)
-        ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), f) for f in (
-            ps.env_state, ps.key, ps.elapsed, ps.autoreset, ps.full_reset)))
-        dynamics.spd_solve = spy
-        matmul.fp32_precision = "tf32"  # a caller that allows TF32
-        try:
-            ps, got = eng.step(ps, {"action": act.to(device)})
-            torch.cuda.synchronize()
-            _check(matmul.fp32_precision == "tf32",
-                   "the step did not restore the caller's TF32 setting")
-        finally:
-            dynamics.spd_solve = solve
-            matmul.fp32_precision = "ieee"
+    for t, (act, ps_cpu, got, restored, card) in enumerate(card_steps):
+        _check(restored, "the step did not restore the caller's TF32 setting")
         if physics:
             # The physics state: the card's float32 step against the CPU's,
             # and both against a float64 step.
-            mine, skip = _physics_crossed(env, ps_cpu, act, device)
-            state = ps_cpu.env_state
-            theirs = tuple(ps.env_state[k].cpu() for k in ("qpos", "qvel"))
-            a, b = torch.cat(theirs, 1), torch.cat(mine, 1)
+            theirs, state = card, ps_cpu.env_state
+            sides = card_sides(env, ps_cpu, act, device)
             ref = _physics_f64(env, state, act, device)
+            mine, skip = _physics_crossed(env, ps_cpu, act, sides)
+            a, b = torch.cat(theirs, 1), torch.cat(mine, 1)
             # Envs whose state left the finite numbers (the reference's
             # physics diverges on some manipulator and stacker states): on
             # entry, in the float64 step, or on both devices in this step.
@@ -1209,15 +1426,15 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
                     f"card {float(rel(got['obs'].cpu().reshape(n, -1), ref)[bad].max()):.3g}, "
                     f"cpu {float(rel(want['obs'].reshape(n, -1), ref)[bad].max()):.3g} "
                     f"off on those envs; {int((bad & ps_cpu.autoreset).sum())} reset rows")
-            print(failure_report(bad, eng, cpu, ps_cpu, act, got, want, device))
+            say(failure_report(bad, eng, cpu, ps_cpu, act, got, want, device))
         _check(not bool(bad.any()),
                f"{int(bad.sum())} envs differ by more than {tol:g} at step {t} "
                f"(largest per field: {bad_fields})")
     f64s = {k: torch.cat(v) if physics else torch.zeros(0) for k, v in to_f64.items()}
     _check(not physics or tf32_seen == {"ieee"},
            f"TF32 inside the physics step: fp32_precision seen {tf32_seen}")
-    _check(not_spd[0] == 0, f"{not_spd[0]} matrices of the step not SPD on the card")
-    print(
+    _check(not_spd == 0, f"{not_spd} matrices of the step not SPD on the card")
+    say(
         f"{task} card vs CPU, {n} envs x {steps} steps from the same states "
         f"(after {warmup} warm-up steps; {resets} resets, {terms} terminations "
         f"among them): largest |card - cpu| / (1 + |cpu|) = {worst:.3g} "
@@ -1235,11 +1452,18 @@ def phase_float_card_vs_cpu(device: str, task: str, n: int, warmup: int,
            + "; TF32 off inside every physics step "
            "while the caller allowed it; every matrix solved on the card SPD"
            if physics else "")
+        + f" (the card's warm-up {card_s[0]:.1f} s, its checked steps {card_s[1]:.1f} s; "
+        f"the CPU's side {time.perf_counter() - t0:.1f} s)"
     )
-    return {"worst": worst, "flips": flips, "skipped": skipped, "checked": n * steps,
-            "resets": resets,
-            "diverged": n_diverged, "diverge_share": DIVERGE_SHARE if may_diverge else 0.0,
-            "arbitrated": arbitrated, "obs_arbitrated": obs_arbitrated, **f64s}
+    out = {"worst": worst, "flips": flips, "skipped": skipped, "checked": n * steps,
+           "resets": resets,
+           "diverged": n_diverged, "diverge_share": DIVERGE_SHARE if may_diverge else 0.0,
+           "arbitrated": arbitrated, "obs_arbitrated": obs_arbitrated, **f64s}
+    if family is None:
+        return out
+    check_shares(task, out)
+    _FAMILY_RESULTS.setdefault(family, []).append(out)
+    return None
 
 
 def _runs(idx: np.ndarray) -> list[tuple[int, int]]:
@@ -1254,36 +1478,39 @@ def failure_report(bad, eng, cpu, ps_cpu, act, got, want, device) -> str:
     """What a failed card-vs-CPU step of an env without physics tells about
     where it went wrong: the failing envs as contiguous runs, their count in
     each aligned block of 2048 and of 512 envs, and whether stepping the
-    same state and action again on the card, and on the CPU with one
-    thread, gives each side's own result bit for bit (a fault that comes
-    and goes, or one that the CPU's threads bring)."""
+    same state and action again on the card (given its engine ``eng``, which
+    a worker process lacks), and on the CPU with one thread, gives each
+    side's own result bit for bit (a fault that comes and goes, or one that
+    the CPU's threads bring)."""
     import torch
 
     from envpool_tpu_torch.core.engine import PoolState, _tree_map
+
+    def same(a, b):
+        return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
 
     n = bad.shape[0]
     idx = bad.nonzero()[:, 0].numpy()
     runs = _runs(idx)
     blocks = {size: np.bincount(idx // size, minlength=-(-n // size)).tolist()
               for size in (2048, 512)}
-    ps_card = PoolState(*(_tree_map(lambda x: x.to(device), f) for f in (
-        ps_cpu.env_state, ps_cpu.key, ps_cpu.elapsed, ps_cpu.autoreset, ps_cpu.full_reset)))
-    _, again = eng.step(ps_card, {"action": act.to(device)})
-    torch.cuda.synchronize()
+    again = "not run (no card engine in the worker process)"
+    if eng is not None:
+        ps_card = PoolState(*(_tree_map(lambda x: x.to(device), f) for f in (
+            ps_cpu.env_state, ps_cpu.key, ps_cpu.elapsed, ps_cpu.autoreset, ps_cpu.full_reset)))
+        _, step = eng.step(ps_card, {"action": act.to(device)})
+        torch.cuda.synchronize()
+        again = same(step, got)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         _, one = cpu.step(ps_cpu, {"action": act})
     finally:
         torch.set_num_threads(threads)
-
-    def same(a, b):
-        return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
-
     return (f"failure report: {len(idx)} envs in {len(runs)} contiguous runs "
             f"(first {runs[:8]}, last {runs[-8:]}); per aligned block of 2048 envs "
             f"{blocks[2048]}, of 512 envs {blocks[512]}; the card again from the same "
-            f"state and action gives its own result bit for bit: {same(again, got)}; the "
+            f"state and action gives its own result bit for bit: {again}; the "
             f"CPU on 1 thread (of {threads}) gives its own: {same(one, want)}")
 
 
@@ -1310,7 +1537,7 @@ def check_f64_parity(what: str, card64, cpu64, tol: float) -> None:
     (plus 5)."""
     qc, qp = (np.quantile(x.numpy(), [0.99, 0.999]) for x in (card64, cpu64))
     past = [int((x > tol / 2).sum()) for x in (card64, cpu64)]
-    print(f"{what}: distance of float32 to float64 over {len(card64)} "
+    say(f"{what}: distance of float32 to float64 over {len(card64)} "
           f"envs (99th/99.9th percentile/max): card "
           f"{_quantiles(card64)}, CPU {_quantiles(cpu64)}; past {tol / 2:g}: "
           f"card {past[0]}, CPU {past[1]}")
@@ -1785,12 +2012,12 @@ def _kw(make_kwargs: dict) -> str:
     return f" ({', '.join(f'{k}={v!r}' for k, v in make_kwargs.items())})" if make_kwargs else ""
 
 
-def section_solver(device: str, card: str) -> tuple[dict, int]:
+def section_solver(device: str, card: str, later: CpuSide) -> tuple[dict, int]:
     """The PGS kernel against its plain version and timed, then Ant-v4 with
     the constraint solver at ``N_ANT`` envs through every phase (card vs
     CPU at ``N_SOLVER_VS``), and short checks of CheetahRun-v1 and of a
-    float64 model in solver mode; returns the kernel's record and its
-    launches on the Ant-v4 path."""
+    float64 model in solver mode (their CPU's side in ``later``'s worker);
+    returns the kernel's record and its launches on the Ant-v4 path."""
     from envpool_tpu_torch.ops.cuda_pgs import pgs_solve
 
     stats = phase_pgs_vs_plain(device, N_ANT)
@@ -1812,7 +2039,7 @@ def section_solver(device: str, card: str) -> tuple[dict, int]:
           f"{prof['launches']:.0f} launches, "
           f"{prof['device_ms']:.3f} device ms, idle {prof['idle']:.3f} per env step; rollout "
           f"{prof['steps_per_s']:,.0f} env-steps/s on {card}")
-    phase_short_checks(device, "dm_control solver", list(SOLVER_SHORT),
+    phase_short_checks(device, "dm_control solver", list(SOLVER_SHORT), later,
                        contact_solver="mujoco")
     return stats, launches
 
@@ -1980,10 +2207,13 @@ def phase_rule_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: i
     return totals
 
 
-def phase_profile_reset(device: str, task: str, n: int, calls: int = 2) -> dict:
+def phase_profile_reset(device: str, task: str, n: int, calls: int = 10) -> dict:
     """``torch.profiler`` over ``calls`` runs of the env's reset branch
     alone (its draws and ``reset_env`` for every row, which the engine
-    runs on every step): launches and device ms per run."""
+    runs on every step): launches and device ms per run.  The device ms
+    stand only where the profiler kept one device record for each kernel
+    launched (late in a long process it has kept none of a window of a few
+    launches); else ``device_ms`` is None, and ``said`` tells it."""
     import torch
 
     from envpool_tpu_torch.core import rng
@@ -1998,20 +2228,26 @@ def phase_profile_reset(device: str, task: str, n: int, calls: int = 2) -> dict:
             env.reset_env(env.reset_draws(sub))
         torch.cuda.synchronize()
     events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in _device_events(events))
-    out = {"launches": _launches(events) / calls, "device_ms": device_us / calls / 1e3}
-    print(f"profile, {task} reset branch alone at {n} envs: {out['launches']:.0f} kernel "
-          f"launches, {out['device_ms']:.3f} device ms per step")
-    return out
+    seen = _device_events(events)
+    launched = _launches(events)
+    kept = sum(e.count for e in seen if not e.key.startswith(("Memcpy", "Memset")))
+    device_ms = (sum(e.self_device_time_total for e in seen) / calls / 1e3
+                 if kept == launched else None)
+    said = (f"{device_ms:.3f} device ms" if device_ms is not None else
+            f"device ms not measured (the profiler kept {kept} of {launched} kernels)")
+    print(f"profile, {task} reset branch alone at {n} envs: {launched / calls:.0f} kernel "
+          f"launches, {said} per step")
+    return {"launches": launched / calls, "device_ms": device_ms, "said": said}
 
 
 def section_render(device: str, card: str, task: str, n: int, episode: int,
                    rollout_steps: int, vs_n: int, tol: float | None,
-                   exact_state: bool = False) -> dict:
+                   exact_state: bool = False, legal: bool = False) -> dict:
     """``task`` at ``n`` envs through every entry point (the gymnasium
     pool's episodes cut at ``episode`` steps), card vs CPU at ``vs_n`` envs
     (:func:`phase_rule_card_vs_cpu`, ``tol`` 0: equal; with
-    ``exact_state``, :func:`phase_state_card_vs_cpu`), a profile and a
+    ``exact_state``, :func:`phase_state_card_vs_cpu`, by legal moves with
+    ``legal``), a profile and a
     functional rollout; none of it may launch K1, K2 or the PGS kernel.
     Returns the profile's numbers and the rollout's rate."""
     kernels = _kernel_launches()
@@ -2027,7 +2263,8 @@ def section_render(device: str, card: str, task: str, n: int, episode: int,
     lap("adapters")
     # Episodes of 31 steps: the checked steps end them, reset, step again.
     if exact_state:
-        phase_state_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, max_episode_steps=31)
+        phase_state_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, legal=legal,
+                                max_episode_steps=31)
     else:
         phase_rule_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, tol=tol,
                                max_episode_steps=31)
@@ -2042,7 +2279,7 @@ def section_render(device: str, card: str, task: str, n: int, episode: int,
         f"{task} at {n} envs on {card}: functional rollout of {rollout_steps} steps "
         f"{steps_per_s:,.0f} env-steps/s; engine step {prof['launches']:.0f} kernel launches, "
         f"{prof['device_ms']:.3f} device ms, idle share {prof['idle']:.3f} (the reset branch "
-        f"{reset['launches']:.0f} launches, {reset['device_ms']:.3f} device ms of it); {seen}; "
+        f"{reset['launches']:.0f} launches, {reset['said']} of it); {seen}; "
         f"K1, K2 and the PGS kernel launched 0 times ({time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
     return dict(prof, steps_per_s=steps_per_s, reset_launches=reset["launches"],
@@ -2117,11 +2354,13 @@ N_RENDERED = 256
 
 
 def phase_state_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: int,
-                            **make_kwargs) -> dict:
+                            legal: bool = False, **make_kwargs) -> dict:
     """After ``warmup`` random steps on the card, ``steps`` engine steps
     each taken on the card and on the CPU from the same pool state and
     action: the new pool state (the env state with it) and the timestep
-    equal in every field.  Returns the resets and terminations seen."""
+    equal in every field.  With ``legal``, the actions are drawn from the
+    last timestep's legal moves (:func:`_legal_sampler`), so that a board
+    game's states go deep.  Returns the resets and terminations seen."""
     import torch
 
     import envpool_tpu_torch
@@ -2132,18 +2371,26 @@ def phase_state_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: 
                                              **make_kwargs).env)
     eng = card.engine
     gen = torch.Generator().manual_seed(SEED)
-    sample = _sampler(_spec(card), n, "cpu")
-    ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
+    players = eng.env.max_num_players
+    if legal:
+        draw = _legal_sampler(_spec(card), n, "cpu", players)
+    else:
+        uniform = _sampler(_spec(card), n, "cpu", players)
+
+        def draw(gen, ts):
+            return uniform(gen)
+    ps, ts = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
     for _ in range(warmup):
-        ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
+        ps, ts = eng.step(ps, {"action": draw(gen, ts).to(device)})
     fields = ("env_state", "key", "elapsed", "autoreset", "full_reset")
     resets = terms = 0
     t0 = time.perf_counter()
     for t in range(steps):
-        act = sample(gen)
+        act = draw(gen, ts)
         ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), getattr(ps, f)) for f in fields))
         ps, got = eng.step(ps, {"action": act.to(device)})
         cps, want = cpu.step(ps_cpu, {"action": act})
+        ts = want
         for f in fields:
             _check(_tree_equal(_tree_map(lambda x: x.cpu(), getattr(ps, f)), getattr(cps, f)),
                    f"{task}: card and CPU differ in {f} at step {t}")
@@ -2234,7 +2481,7 @@ def section_minigrid(device: str, card: str) -> dict:
     print(f"{boss} at {N_MINIGRID} envs on {card}: functional rollout of 16 steps "
           f"{steps_per_s:,.0f} env-steps/s; engine step {prof['launches']:.0f} kernel launches, "
           f"{prof['device_ms']:.3f} device ms, idle share {prof['idle']:.3f} (the reset branch "
-          f"{reset['launches']:.0f} launches, {reset['device_ms']:.3f} device ms of it); K1, K2 "
+          f"{reset['launches']:.0f} launches, {reset['said']} of it); K1, K2 "
           f"and the PGS kernel launched 0 times ({time.perf_counter() - t1:.1f} s)")
     t2 = time.perf_counter()
     short = [(t, {"max_episode_steps": 1}) for t in ids
@@ -2243,6 +2490,79 @@ def section_minigrid(device: str, card: str) -> dict:
     print(f"minigrid: {time.perf_counter() - t0:.1f} s (MiniGrid-Empty-8x8-v0 {t1 - t0:.1f}, "
           f"{boss} {t2 - t1:.1f}, the other {len(short)} ids {time.perf_counter() - t2:.1f})")
     return {"empty": empty, "boss": dict(prof, steps_per_s=steps_per_s,
+                                         reset_launches=reset["launches"],
+                                         reset_device_ms=reset["device_ms"])}
+
+
+# board/pgx: TicTacToe-v1 at N_BOARD envs (bench.py:206's row, its
+# 256-step rollout) and Go19x19-v1, the family's heaviest step (two
+# fixpoint loops over [N, 19, 19] per step), at N_BOARD envs, profiled,
+# timed and checked card vs CPU GO_DEPTH legal moves in (chains, captures,
+# ko: the loops' passes grow with them); TicTacToe-v1's
+# per-player rows at N_BOARD_ROWS; every other board id exact at
+# N_BOARD_SHORT envs in episodes of BOARD_EPISODE steps, checked across
+# their end and the reset after it.
+N_BOARD = 8192
+N_BOARD_ROWS = 256
+N_BOARD_SHORT = 64
+GO_DEPTH = 40
+BOARD_EPISODE = 5
+
+
+def section_board(device: str, card: str) -> dict:
+    """TicTacToe-v1 at ``N_BOARD`` envs through every entry point (card vs
+    CPU equal in every field of the state and the timestep, by legal
+    moves, resets among the checked steps; profiles of the step and of its
+    reset branch; the 256-step rollout) and with 2 players' action rows,
+    Go19x19-v1 at ``N_BOARD`` (``GO_DEPTH`` legal moves in: a profile of
+    the step and the fixpoint loops' passes on its boards, a 16-step
+    rollout, card vs CPU equal in every field; a profile of the reset
+    branch), and every other board id exact at ``N_BOARD_SHORT``; none may
+    launch K1, K2 or the PGS kernel.  Returns the main paths' numbers."""
+    from envpool_tpu_torch.core.registry import registry
+    from envpool_tpu_torch.envs.board import go as go_env
+    from envpool_tpu_torch.envs.board.common import min_labels
+
+    t0 = time.perf_counter()
+    ids = [t for t, (path, _, _) in registry.specs.items() if path.endswith(".board")]
+    ttt, go = "TicTacToe-v1", "Go19x19-v1"
+    # Episodes of 5 steps in the adapters' run: a game of random actions
+    # rarely lasts longer.
+    tic = section_render(device, card, ttt, N_BOARD, BOARD_EPISODE, 256, N_BOARD, 0.0,
+                         exact_state=True, legal=True)
+    kernels = _kernel_launches()
+    for k in kernels:
+        k.launches = 0
+    rows = phase_state_card_vs_cpu(device, ttt, N_BOARD_ROWS, 8, 3, legal=True,
+                                   max_num_players=2)
+    _check(rows["resets"] > 0, f"{ttt} with 2 players: no reset among the checked steps")
+    t1 = time.perf_counter()
+    prof = phase_profile(device, go, N_BOARD, PROFILE_STEPS, warmup=GO_DEPTH, legal=True)
+    board = prof.pop("ps").env_state["board"]
+    passes = []
+    for loop in (go_env.chain_labels, go_env.area_score):
+        min_labels.passes = 0
+        loop(board)
+        passes.append(min_labels.passes)
+    reset = phase_profile_reset(device, go, N_BOARD)
+    steps_per_s, _ = phase_throughput(device, go, N_BOARD, 16, depth=GO_DEPTH, legal=True)
+    phase_state_card_vs_cpu(device, go, N_BOARD, GO_DEPTH, 2, legal=True)
+    _check(all(k.launches == 0 for k in kernels),
+           f"{ttt} with 2 players or {go} launched K1, K2 or the PGS kernel")
+    print(f"{go} at {N_BOARD} envs on {card}, {GO_DEPTH} legal moves in: functional rollout "
+          f"of 16 steps {steps_per_s:,.0f} env-steps/s; engine step {prof['launches']:.0f} "
+          f"kernel launches, {prof['device_ms']:.3f} device ms, idle share {prof['idle']:.3f}, "
+          f"the fixpoint loops' passes on its boards ({float((board != 0).sum()) / N_BOARD:.1f} "
+          f"stones a board): chains {passes[0]}, empty regions {passes[1]}; the reset branch "
+          f"{reset['launches']:.0f} launches, {reset['said']}; K1, K2 and "
+          f"the PGS kernel launched 0 times ({time.perf_counter() - t1:.1f} s)")
+    t2 = time.perf_counter()
+    short = [(t, {"max_episode_steps": BOARD_EPISODE}) for t in ids if t not in (ttt, go)]
+    phase_exact_checks(device, short, n=N_BOARD_SHORT, warmup=BOARD_EPISODE - 1, steps=3,
+                       state=True, legal=True)
+    print(f"board: {time.perf_counter() - t0:.1f} s ({ttt} {t1 - t0:.1f}, {go} {t2 - t1:.1f}, "
+          f"the other {len(short)} ids {time.perf_counter() - t2:.1f})")
+    return {"tictactoe": tic, "go": dict(prof, steps_per_s=steps_per_s,
                                          reset_launches=reset["launches"],
                                          reset_device_ms=reset["device_ms"])}
 
@@ -2386,21 +2706,23 @@ def phase_surface_checks(device: str) -> None:
 
 
 def phase_exact_checks(device: str, checks: list[tuple[str, dict]], n: int = N_EXACT,
-                       warmup: int = 12, steps: int = 8, state: bool = False) -> None:
+                       warmup: int = 12, steps: int = 8, state: bool = False,
+                       legal: bool = False) -> None:
     """A short card-vs-CPU check of each toy_text id, of Dummy-v0, of
-    procgen's grid ids and of the minigrid ids (with its make arguments):
-    ``n`` envs, ``steps`` checked steps after ``warmup`` warm-up steps,
-    every field of the timestep equal (their state is integer and their
-    float fields exact), and with ``state`` every field of the env state
-    too (:func:`phase_state_card_vs_cpu`), with resets among the checked
-    steps; none may launch K1, K2 or the PGS kernel."""
+    procgen's grid ids, of the minigrid ids and of the board ids (with its
+    make arguments): ``n`` envs, ``steps`` checked steps after ``warmup``
+    warm-up steps, every field of the timestep equal (their state is
+    integer and their float fields exact), and with ``state`` every field
+    of the env state too (:func:`phase_state_card_vs_cpu`, by legal moves
+    with ``legal``), with resets among the checked steps; none may launch
+    K1, K2 or the PGS kernel."""
     kernels = _kernel_launches()
     t0 = time.perf_counter()
     for k in kernels:
         k.launches = 0
     for task, kwargs in checks:
         if state:
-            v = phase_state_card_vs_cpu(device, task, n, warmup, steps, **kwargs)
+            v = phase_state_card_vs_cpu(device, task, n, warmup, steps, legal=legal, **kwargs)
         else:
             print(f"  {task} {kwargs}:")
             v = phase_float_card_vs_cpu(device, task, n, warmup=warmup, steps=steps,
@@ -2412,7 +2734,7 @@ def phase_exact_checks(device: str, checks: list[tuple[str, dict]], n: int = N_E
           f"kernel launched 0 times ({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_short_checks(device: str, family: str, tasks: list[str],
+def phase_short_checks(device: str, family: str, tasks: list[str], later: CpuSide,
                        share_warmup: bool = False, n: int | None = None,
                        **make_kwargs) -> None:
     """A short card-vs-CPU check of each id of a physics family, as deep as
@@ -2421,9 +2743,11 @@ def phase_short_checks(device: str, family: str, tasks: list[str],
     ``share_warmup`` one warm-up for ids that step alike
     (:func:`phase_float_card_vs_cpu`), ``make_kwargs`` to every pool;
     none may launch K1 or K2, and only the constraint solver's
-    (``contact_solver="mujoco"``) the PGS kernel."""
-    import torch
-
+    (``contact_solver="mujoco"``) the PGS kernel (:func:`family_checks`).
+    The CPU's side of every id's check and the family's checks after them
+    run in ``later``'s worker process, in the same order, while the card
+    goes on with the next id; the kernels' launches are read here when the
+    family's card work is done."""
     from envpool_tpu_torch.ops.cuda_image import fused_pool_resize
     from envpool_tpu_torch.ops.cuda_machine import machine_frame
     from envpool_tpu_torch.ops.cuda_pgs import pgs_solve
@@ -2432,30 +2756,43 @@ def phase_short_checks(device: str, family: str, tasks: list[str],
     machine_frame.launches = 0
     fused_pool_resize.launches = 0
     pgs_solve.launches = 0
-    checks = []
     warm = {} if share_warmup else None
     width = n
     for task in tasks:
+        later.poll()  # a failed check fails the run at once
         n = width or (N_SHORT_FREE if task.split("-")[0] in FREE_BASE else N_SHORT)
         t_task = time.perf_counter()
         steps, warmup = _short_depth(task)
-        checks.append(phase_float_card_vs_cpu(device, task, n, warmup=warmup, steps=steps,
-                                              tol=PHYSICS_TOL, spread=_spread(task),
-                                              warm=warm, **make_kwargs))
-        check_shares(task, checks[-1])
-        print(f"  ({task}: {time.perf_counter() - t_task:.1f} s)")
+        phase_float_card_vs_cpu(device, task, n, warmup=warmup, steps=steps,
+                                tol=PHYSICS_TOL, spread=_spread(task), warm=warm,
+                                later=later, family=family, **make_kwargs)
+        say(f"  ({task}: {time.perf_counter() - t_task:.1f} s of the card's side)")
+    later.submit(family_checks, family, make_kwargs, (
+        fused_pool_resize.launches, machine_frame.launches, pgs_solve.launches),
+        time.perf_counter() - t0, t0)
+
+
+def family_checks(family: str, make_kwargs: dict, launches: tuple, card_s: float,
+                  t0: float) -> None:
+    """The checks after a family's short checks: the card's float32 steps
+    as close to float64 as the CPU's over all its ids, and the kernels'
+    ``launches`` (K1, K2, PGS) during its card work (which took ``card_s``
+    where the CPU's side ran apart)."""
+    import torch
+
+    done = _FAMILY_RESULTS.pop(family)
     for what in ("", "_obs"):
-        check_f64_parity(f"the {len(tasks)} short {family} checks, {what[1:] or 'state'}",
-                         *(torch.cat([v[k + what] for v in checks]) for k in ("card", "cpu")),
+        check_f64_parity(f"the {len(done)} short {family} checks, {what[1:] or 'state'}",
+                         *(torch.cat([v[k + what] for v in done]) for k in ("card", "cpu")),
                          PHYSICS_TOL)
-    _check(fused_pool_resize.launches == machine_frame.launches == 0,
-           f"a {family} id launched K1 or K2")
+    _check(launches[0] == launches[1] == 0, f"a {family} id launched K1 or K2")
     solver = make_kwargs.get("contact_solver") == "mujoco"
-    _check((pgs_solve.launches > 0) == solver,
-           f"the {family} ids launched the PGS kernel {pgs_solve.launches} times")
-    print(f"short card-vs-CPU checks of {len(tasks)} {family} ids{_kw(make_kwargs)} passed; K1 "
-          f"and K2 launched 0 times, the PGS kernel {pgs_solve.launches} "
-          f"({time.perf_counter() - t0:.1f} s)")
+    _check((launches[2] > 0) == solver,
+           f"the {family} ids launched the PGS kernel {launches[2]} times")
+    took = time.perf_counter() - t0
+    say(f"short card-vs-CPU checks of {len(done)} {family} ids{_kw(make_kwargs)} passed; K1 "
+        f"and K2 launched 0 times, the PGS kernel {launches[2]} ({card_s:.1f} s of the card's "
+        f"side; done {took:.1f} s after it began)")
 
 
 def _short_depth(task: str) -> tuple[int, int]:
@@ -2534,39 +2871,48 @@ def main() -> int:
 
     # -- CartPole-v1, FrozenLake8x8-v1 and the physics: no Pallas kernel on
     # their path -----------------------------------------------------------
-    for task, n, episode, tol, rollout_steps in (
-        ("CartPole-v1", N_CARTPOLE, 15, CARTPOLE_TOL, 512),
-        ("FrozenLake8x8-v1", N_FROZEN, 15, 0.0, 512),
-        ("HalfCheetah-v4", N_CHEETAH, 20, PHYSICS_TOL, 128),
-        ("Ant-v4", N_ANT, 10, PHYSICS_TOL, 128),
-        ("Humanoid-v4", N_HUMANOID, 10, PHYSICS_TOL, 32),
-        ("CheetahRun-v1", N_DMC, 10, PHYSICS_TOL, 128),
-        ("QuadrupedRun-v1", N_DMC, 10, PHYSICS_TOL, 32),
+    for task, n, episode, tol, rollout_steps, vs_n in (
+        ("CartPole-v1", N_CARTPOLE, 15, CARTPOLE_TOL, 512, None),
+        ("FrozenLake8x8-v1", N_FROZEN, 15, 0.0, 512, None),
+        ("HalfCheetah-v4", N_CHEETAH, 20, PHYSICS_TOL, 128, N_MAIN_VS),
+        ("Ant-v4", N_ANT, 10, PHYSICS_TOL, 128, N_MAIN_VS),
+        ("Humanoid-v4", N_HUMANOID, 10, PHYSICS_TOL, 32, N_MAIN_VS),
+        ("CheetahRun-v1", N_DMC, 10, PHYSICS_TOL, 128, N_MAIN_VS),
+        ("QuadrupedRun-v1", N_DMC, 10, PHYSICS_TOL, 32, N_MAIN_VS),
     ):
-        phase_physics(device, card, task, n, episode, tol, rollout_steps)
+        phase_physics(device, card, task, n, episode, tol, rollout_steps, vs_n=vs_n)
     phase_physics(device, card, "DogRun-v1", N_DMC, 4, PHYSICS_TOL, 8, vs_n=N_DOG_VS)
     print(f"[{time.perf_counter() - t_start:.1f} s] main paths done")
-    # -- the constraint solver (the PGS kernel) and from_pixels ------------
-    pgs_stats, pgs_launches = section_solver(device, card)
-    print(f"[{time.perf_counter() - t_start:.1f} s] the solver and the PGS kernel done")
-    section_pixels(device, card)
-    print(f"[{time.perf_counter() - t_start:.1f} s] from_pixels done")
-    section_procgen(device, card)
-    print(f"[{time.perf_counter() - t_start:.1f} s] procgen done")
-    section_vizdoom(device, card)
-    print(f"[{time.perf_counter() - t_start:.1f} s] vizdoom done")
-    section_minigrid(device, card)
-    print(f"[{time.perf_counter() - t_start:.1f} s] minigrid done")
-    phase_exact_checks(device, exact)
-    phase_surface_checks(device)
-
-    # -- every other physics id: a short card-vs-CPU check ----------------
-    phase_short_checks(device, "Gym-MuJoCo", [
-        t for t, (path, _, _) in registry.specs.items()
-        if path.endswith(".mujoco_gym") and not t.startswith("HalfCheetah")
-        and t not in ("Ant-v4", "Humanoid-v4")])
-    phase_short_checks(device, "dm_control", dmc_short, share_warmup=True)
-    phase_short_checks(device, "dog", dog_short, share_warmup=True, n=N_DOG_SHORT)
+    # -- the constraint solver (the PGS kernel), from_pixels, the grid and
+    # board families; every other physics id a short card-vs-CPU check: the
+    # CPU's side of the physics short checks runs in a worker process while
+    # the card goes on with the next id -------------------------------------
+    with CpuSide() as later:
+        pgs_stats, pgs_launches = section_solver(device, card, later)
+        print(f"[{time.perf_counter() - t_start:.1f} s] the solver and the PGS kernel done")
+        section_pixels(device, card)
+        print(f"[{time.perf_counter() - t_start:.1f} s] from_pixels done")
+        section_procgen(device, card)
+        print(f"[{time.perf_counter() - t_start:.1f} s] procgen done")
+        section_vizdoom(device, card)
+        print(f"[{time.perf_counter() - t_start:.1f} s] vizdoom done")
+        section_minigrid(device, card)
+        print(f"[{time.perf_counter() - t_start:.1f} s] minigrid done")
+        section_board(device, card)
+        print(f"[{time.perf_counter() - t_start:.1f} s] board done")
+        phase_exact_checks(device, exact)
+        phase_surface_checks(device)
+        t_short = time.perf_counter()
+        phase_short_checks(device, "Gym-MuJoCo", [
+            t for t, (path, _, _) in registry.specs.items()
+            if path.endswith(".mujoco_gym") and not t.startswith("HalfCheetah")
+            and t not in ("Ant-v4", "Humanoid-v4")], later)
+        phase_short_checks(device, "dm_control", dmc_short, later, share_warmup=True)
+        phase_short_checks(device, "dog", dog_short, later, share_warmup=True, n=N_DOG_SHORT)
+        waited = later.drain()
+    print(f"[{time.perf_counter() - t_start:.1f} s] short checks done "
+          f"({time.perf_counter() - t_short:.1f} s; the CPU's side in a worker process, "
+          f"{waited:.1f} s of it after the card's side had ended)")
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     kernels = [

@@ -120,7 +120,8 @@ class Engine:
         done_step = out.terminated | trunc_cond
         done = torch.where(do_reset, False, done_step)
         trunc = done & trunc_cond
-        reward = torch.where(
+        # (a multi-player game's reward has one row per player)
+        reward = tree_where(
             do_reset, torch.zeros_like(out.reward), out.reward
         ).to(torch.float32)
         if out.discount is not None:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ...core import rng
+from ...core.rng import Draws  # noqa: F401  (the families' shared draw layout)
 from ...ops.batched import const, first_argmax
 
 # OBJECT_TO_IDX
@@ -39,63 +40,6 @@ DIR_VEC = ((1, 0), (0, 1), (-1, 0), (0, -1))
 
 WALL_CELL = (WALL, GREY, 0)
 EMPTY_CELL = (EMPTY, 0, 0)
-
-
-class Draws:
-    """The draws of one reset or step for every row, made in the order the
-    JAX env makes them: each call takes fresh slots of the ``core/rng.py``
-    stream of subkeys ``sub`` and stores its value under ``name`` in
-    :attr:`out`.  ``out["rows"]`` (``[N, 0]``) carries the row count."""
-
-    def __init__(self, sub: torch.Tensor):
-        self.sub = sub
-        self.slot = 0
-        self.out = {"rows": torch.zeros((sub.shape[0], 0), dtype=torch.int8, device=sub.device)}
-
-    def _bits(self, k: int | None) -> torch.Tensor:
-        slot = self.slot
-        self.slot += k or 1
-        return rng.random_bits(self.sub, slot, k)
-
-    def _put(self, name: str, value: torch.Tensor) -> torch.Tensor:
-        self.out[name] = value
-        return value
-
-    def randint(self, name: str, lo, hi, shape: tuple = (), share: str | None = None):
-        """int32 uniform in ``[lo, hi)`` (``lo``, ``hi`` ints or ``[N]``
-        tensors), ``[N, *shape]``; with ``share``, the value of that earlier
-        draw (the JAX env drew both from one key)."""
-        if share is not None:
-            return self._put(name, self.out[share])
-        k = int(np.prod(shape)) if shape else None
-        bits = self._bits(k)
-        lo = torch.as_tensor(lo, device=bits.device).to(torch.int64)
-        span = (torch.as_tensor(hi, device=bits.device).to(torch.int64) - lo).clamp(min=0)
-        if shape:
-            lo, span = lo.reshape(-1, 1), span.reshape(-1, 1)
-        v = lo + ((bits * span) >> 32)
-        return self._put(name, v.reshape(-1, *shape).to(torch.int32))
-
-    def cells(self, name: str, k: int) -> torch.Tensor:
-        """``[N, k]`` float32 noise of one categorical pick over ``k``
-        choices (:func:`pick`)."""
-        slot = self.slot
-        self.slot += k
-        return self._put(name, rng.uniform(self.sub, slot, k))
-
-    def perm(self, name: str, n: int) -> torch.Tensor:
-        """``[N, n]`` int32: a uniform permutation of ``range(n)``."""
-        order = torch.argsort(self._bits(n), dim=1, stable=True)
-        return self._put(name, order.to(torch.int32))
-
-    def bernoulli(self, name: str) -> torch.Tensor:
-        """``[N]`` bool, true with probability 1/2."""
-        return self._put(name, (self._bits(None) >> 31) == 1)
-
-    def choice(self, name: str, options: tuple) -> torch.Tensor:
-        """``[N]`` int8: one of ``options``, uniformly."""
-        idx = ((self._bits(None) * len(options)) >> 32).long()
-        return self._put(name, const(options, self.sub.device, torch.int8)[idx])
 
 
 def empty_grid(width: int, height: int) -> np.ndarray:

@@ -356,10 +356,10 @@ def test_ported_ids():
     assert set(PORTED) <= set(envpool_tpu_torch.list_all_envs())
 
 
-# Every dmc id is ported: the ids of the next families of ``bench.py``'s
-# sweep (pgx, highway) and of box2d are not.
+# Every dmc id is ported: the ids of the next family of ``bench.py``'s
+# sweep (highway), of box2d and of jumanji are not.
 @pytest.mark.parametrize(
-    "task", ["ConnectFour-v1", "merge-v0", "LunarLander-v3", "TicTacToe-v1",
+    "task", ["HighwayFast-v0", "merge-v0", "LunarLander-v3", "Snake-v1",
              "highway-v0"])
 def test_unported_id_raises(task):
     assert task in jax_registry.specs
