@@ -39,12 +39,17 @@ a check by the rule at 64 envs, minigrid's MiniGrid-Empty-8x8-v0 and
 BabyAI-BossLevel-v0 at 8192 envs (every other minigrid id exact at 64),
 the board games' TicTacToe-v1 and Go19x19-v1 at 8192 envs (card vs CPU
 equal in every field, by legal moves; every other board id exact at 64
-across a reset), and the engine's remaining surface on the card:
+across a reset), highway's Highway-v0 and Intersection-v0 at 2048 envs
+(card vs CPU by the rule at 256; every other highway id by the rule at
+64 across a reset), and the engine's remaining surface on the card:
 ``render()``, ``save_state`` / ``load_state``, ``record_dir`` and two
 wrappers.  The CPU's side of the physics short checks runs in a worker
 process while the card goes on with the next id, and the main paths'
 card-vs-CPU phases run at ``N_MAIN_VS`` envs (CartPole-v1 at its full
-width); neither changes a check's rule.  It also times K2
+width); neither changes a check's rule.  Each timed rollout follows a
+warm-up of ``WARMUP_ROLLOUT`` steps at its shapes, and prints its depth;
+each profile holds one engine step, with the profiler's CUDA activity
+alone.  It also times K2
 alone at 1024 and 4096 machines (frames/s, emulated 6502 cycles/s) and
 holds it to its chain bound: each frame's most emulated instructions on
 one machine times one dependent shared-memory load, measured on the card.
@@ -146,12 +151,12 @@ DIVERGE_SHARE = 0.25
 # checks of SOLVER_SHORT in solver mode (SwimmerSwimmer15-v1 steps in
 # float64: the kernel's double instance on a path).
 N_SOLVER_VS = 1024
-SOLVER_ROLLOUT = 64
+SOLVER_ROLLOUT = 32
 SOLVER_SHORT = ("CheetahRun-v1", "SwimmerSwimmer15-v1")
 # from_pixels: CheetahRun-v1 at N_DMC envs, 84x84, 3 frames; a rollout of
 # PIXEL_ROLLOUT steps.  Frames card vs CPU by the frame rule, at most
 # MAX_PIXEL_DIFFER of the pixels differing (tests/test_torch_pixels.py).
-PIXEL_ROLLOUT = 64
+PIXEL_ROLLOUT = 32
 MAX_PIXEL_DIFFER = 1e-3
 
 
@@ -159,10 +164,14 @@ MAX_PIXEL_DIFFER = 1e-3
 # earlier slices' ids take fewer checked steps than the newest ids' 3
 # (Gym-MuJoCo's 1, the dm_control ids of the first two slices 2), the
 # Gym-MuJoCo ids after 20 warm-up steps, not 30, and the main paths'
-# profiles take 2 steps, not 4 (PERF.md, section 5).
+# profiles take 1 step, not 4, with the profiler's CUDA activity alone
+# (the kernels and the runtime's launch calls; its CPU activity, an event
+# per operator, took most of a profile's time in collecting its events;
+# PERF.md, section 5).
 SHORT_STEPS = {"gym": 1, "dmc": 2}
 SHORT_WARMUP_GYM = 20
-PROFILE_STEPS = 2
+PROFILE_STEPS = 1
+PROFILE_RESETS = 3
 
 
 def host_cpu() -> str:
@@ -559,11 +568,17 @@ def _pool(device: str, task: str, n: int, **make_kwargs):
     )
 
 
+# The warm-up rollout before each timed one: steps at the timed run's
+# shapes (every kernel of the step, the allocator's blocks), not its depth.
+WARMUP_ROLLOUT = 2
+
+
 def phase_throughput(device: str, task: str, n: int, steps: int, depth: int = 0,
                      legal: bool = False, **make_kwargs) -> tuple[float, int]:
     """Functional rollout as ``bench.py`` runs it (reset, then ``steps``
     random steps, by legal moves with ``legal``; with ``depth``, ``depth +
-    steps`` steps timed from the ``depth``-th on); returns (env-steps/s,
+    steps`` steps timed from the ``depth``-th on), after a warm-up rollout
+    of ``WARMUP_ROLLOUT`` steps at the same shapes; returns (env-steps/s,
     K1 launches in the timed run)."""
     import torch
 
@@ -574,15 +589,17 @@ def phase_throughput(device: str, task: str, n: int, steps: int, depth: int = 0,
     calls, t0 = [0], [0.0]
 
     def policy(ts, gen):
-        if depth and calls[0] % (depth + steps) == depth:  # the timed steps begin
+        if depth and calls[0] == depth:  # the timed steps begin
             torch.cuda.synchronize()
             t0[0] = time.perf_counter()
         calls[0] += 1
         return {"action": draw(gen, ts) if legal else draw(gen)}
 
+    warm = pool.engine.make_rollout(policy, WARMUP_ROLLOUT, collect=False)
+    ps, _ = warm(pool.pool_state, SEED)
     run = pool.engine.make_rollout(policy, depth + steps, collect=False)
-    ps, _ = run(pool.pool_state, SEED)  # warm-up
     torch.cuda.synchronize()
+    calls[0] = 0
     before = fused_pool_resize.launches
     t0[0] = time.perf_counter()
     ps, ts = run(ps, SEED + 1)
@@ -617,7 +634,11 @@ def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
     (by legal moves with ``legal``, the sampler's launches among the
     step's): device time, idle share, launches per step, the kernels that
     take the most time and, given a kernel's name, its share of the device
-    time.  Returns the first three and the last pool state (``ps``)."""
+    time.  The device ms and the idle share stand only where the profiler
+    kept a device record for every kernel launched (late in a long process
+    it drops some); else both are None, and ``said`` tells it with the
+    count and the bounds the kept records give.  Returns the first three, ``said`` and the last pool state
+    (``ps``)."""
     import torch
 
     pool = _pool(device, task, n, **make_kwargs)
@@ -633,9 +654,7 @@ def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
     for _ in range(warmup):
         ps, ts = eng.step(ps, act(ts))
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             ps, ts = eng.step(ps, act(ts))
@@ -646,6 +665,15 @@ def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
     device_us = sum(e.self_device_time_total for e in kernels)
     _check(device_us > 0, "the profiler saw no device time")
     launches = _launches(events)
+    _check(launches > 0, "the profiler saw no kernel launch")
+    kept = sum(e.count for e in kernels if not e.key.startswith(("Memcpy", "Memset")))
+    measured = kept >= launches
+    device_ms = device_us / steps / 1e3 if measured else None
+    idle = 1 - device_us / 1e6 / wall if measured else None
+    said = (f"{device_ms:.3f} device ms, idle share {idle:.3f}" if measured else
+            f"device ms and idle share not measured (the profiler kept {kept} of {launches} "
+            f"kernels: at least {device_us / steps / 1e3:.3f} device ms, an idle share of at "
+            f"most {1 - device_us / 1e6 / wall:.3f})")
     share = ""
     if kernel is not None:
         mine = [e for e in kernels if kernel in e.key]
@@ -656,16 +684,15 @@ def phase_profile(device: str, task: str, n: int, steps: int, warmup: int,
                  f"{mine_us / device_us:.3f} of device time; ")
     print(
         f"profile, {task} engine.step at {n} envs x {steps} steps: wall "
-        f"{wall / steps * 1e3:.3f} ms/step under the profiler, device "
-        f"{device_us / steps / 1e3:.3f} ms/step, idle share "
-        f"{1 - device_us / 1e6 / wall:.3f}, {launches / steps:.0f} kernel "
-        f"launches/step; {share}top kernels (ms/step, launches/step):"
+        f"{wall / steps * 1e3:.3f} ms/step under the profiler, device records "
+        f"{kept} of {launches} kernels launched: {said} per step, "
+        f"{launches / steps:.0f} kernel launches/step; {share}top kernels (ms/step, "
+        f"launches/step):"
     )
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / steps / 1e3:8.4f} "
               f"{e.count / steps:6.0f}  {e.key[:90]}")
-    return {"device_ms": device_us / steps / 1e3,
-            "idle": 1 - device_us / 1e6 / wall,
+    return {"device_ms": device_ms, "idle": idle, "said": said,
             "launches": launches / steps, "ps": ps}
 
 
@@ -1592,10 +1619,10 @@ def section_pong(device: str, card: str) -> tuple[dict, int]:
     print(f"K1 launches on the PongLite-v5 path: {k1_launches}")
     # 30 steps, to leave the script's time to the physics phases
     phase_card_vs_cpu(device, "PongLite-v5", 8, 30, max_episode_steps=150)
-    phase_profile(device, "PongLite-v5", N_ENVS, 8, warmup=4)
-    # The rollouts of PongLite-v5 (64 steps) and CartPole-v1 (512) are
+    phase_profile(device, "PongLite-v5", N_ENVS, PROFILE_STEPS, warmup=4)
+    # The rollouts of PongLite-v5 (32 steps) and CartPole-v1 (512) are
     # shorter than bench.py's, to leave the script's time to the physics.
-    pong_steps = 64
+    pong_steps = 32
     steps_per_s, k1_run = phase_throughput(device, "PongLite-v5", N_ENVS, pong_steps)
     # one launch for the reset, then one per branch of every step
     per_step = (k1_run - 1) / pong_steps
@@ -1638,7 +1665,7 @@ def section_machine(device: str, card: str) -> tuple[dict, int]:
     # blocks and a sixth with 4.  Env 0 holds DOWN and loses its life.
     phase_card_vs_cpu(device, "Machine2600-v0", 44, 12, hold=5, frame_skip=1,
                       noop_max=1, use_fire_reset=False, **machine)
-    phase_profile(device, "Machine2600-v0", N_MACHINES, 2, warmup=1,
+    phase_profile(device, "Machine2600-v0", N_MACHINES, PROFILE_STEPS, warmup=1,
                   kernel="machine_frame_kernel", **machine)
     machine_steps, k1_run = phase_throughput(
         device, "Machine2600-v0", N_MACHINES, 16, **machine)
@@ -1999,8 +2026,7 @@ def phase_physics(device: str, card: str, task: str, n: int, episode: int,
     print(
         f"{task}{_kw(make_kwargs)} at {n} envs on {card}: functional rollout of {rollout_steps} "
         f"steps {task_steps:,.0f} env-steps/s; engine step {prof['launches']:.0f} "
-        f"kernel launches, {prof['device_ms']:.3f} device ms, idle share "
-        f"{prof['idle']:.3f}; K1 and K2 launched 0 times, the PGS kernel "
+        f"kernel launches, {prof['said']}; K1 and K2 launched 0 times, the PGS kernel "
         f"{pgs_solve.launches} ({time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")"
     )
@@ -2037,7 +2063,7 @@ def section_solver(device: str, card: str, later: CpuSide) -> tuple[dict, int]:
     print(f"PGS kernel launches on the Ant-v4 solver path: {launches} ({per_step} per env "
           f"step: one per substep of frame skip {env.frame_skip}); profile: "
           f"{prof['launches']:.0f} launches, "
-          f"{prof['device_ms']:.3f} device ms, idle {prof['idle']:.3f} per env step; rollout "
+          f"{prof['said']} per env step; rollout of {SOLVER_ROLLOUT} steps "
           f"{prof['steps_per_s']:,.0f} env-steps/s on {card}")
     phase_short_checks(device, "dm_control solver", list(SOLVER_SHORT), later,
                        contact_solver="mujoco")
@@ -2119,8 +2145,8 @@ def section_pixels(device: str, card: str) -> dict:
            f"{task} from pixels launched K1, K2 or the PGS kernel")
     print(f"{task} from pixels at {N_DMC} envs on {card}: functional rollout of "
           f"{PIXEL_ROLLOUT} steps {steps_per_s:,.0f} env-steps/s; engine step "
-          f"{prof['launches']:.0f} kernel launches, {prof['device_ms']:.3f} device ms, idle "
-          f"share {prof['idle']:.3f}; K1, K2 and the PGS kernel launched 0 times "
+          f"{prof['launches']:.0f} kernel launches, {prof['said']}; K1, K2 and the PGS kernel "
+          f"launched 0 times "
           f"({time.perf_counter() - t0:.1f} s: adapters {t1 - t0:.1f}, card vs CPU "
           f"{t2 - t1:.1f}, profile {t3 - t2:.1f}, rollout {time.perf_counter() - t3:.1f})")
     return dict(prof, steps_per_s=steps_per_s)
@@ -2171,7 +2197,7 @@ def phase_rule_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: i
     cpu = Engine(env)
     eng = card.engine
     gen = torch.Generator().manual_seed(SEED)
-    sample = _sampler(_spec(card), n, "cpu")
+    sample = _sampler(_spec(card), n, "cpu", env.max_num_players)
     ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
     for _ in range(warmup):
         ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
@@ -2207,7 +2233,7 @@ def phase_rule_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: i
     return totals
 
 
-def phase_profile_reset(device: str, task: str, n: int, calls: int = 10) -> dict:
+def phase_profile_reset(device: str, task: str, n: int, calls: int = PROFILE_RESETS) -> dict:
     """``torch.profiler`` over ``calls`` runs of the env's reset branch
     alone (its draws and ``reset_env`` for every row, which the engine
     runs on every step): launches and device ms per run.  The device ms
@@ -2222,8 +2248,7 @@ def phase_profile_reset(device: str, task: str, n: int, calls: int = 10) -> dict
     sub = rng.split(env.keys())[1]
     env.reset_env(env.reset_draws(sub))  # warm-up
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             env.reset_env(env.reset_draws(sub))
         torch.cuda.synchronize()
@@ -2242,9 +2267,10 @@ def phase_profile_reset(device: str, task: str, n: int, calls: int = 10) -> dict
 
 def section_render(device: str, card: str, task: str, n: int, episode: int,
                    rollout_steps: int, vs_n: int, tol: float | None,
-                   exact_state: bool = False, legal: bool = False) -> dict:
+                   exact_state: bool = False, legal: bool = False, warmup: int = 30) -> dict:
     """``task`` at ``n`` envs through every entry point (the gymnasium
     pool's episodes cut at ``episode`` steps), card vs CPU at ``vs_n`` envs
+    after ``warmup`` steps in episodes of ``warmup + 1``
     (:func:`phase_rule_card_vs_cpu`, ``tol`` 0: equal; with
     ``exact_state``, :func:`phase_state_card_vs_cpu`, by legal moves with
     ``legal``), a profile and a
@@ -2261,13 +2287,14 @@ def section_render(device: str, card: str, task: str, n: int, episode: int,
 
     seen = phase_float_adapters(device, task, n, episode)
     lap("adapters")
-    # Episodes of 31 steps: the checked steps end them, reset, step again.
+    # Episodes of warmup + 1 steps: the checked steps end them, reset, step
+    # again.
     if exact_state:
-        phase_state_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, legal=legal,
-                                max_episode_steps=31)
+        phase_state_card_vs_cpu(device, task, vs_n, warmup=warmup, steps=3, legal=legal,
+                                max_episode_steps=warmup + 1)
     else:
-        phase_rule_card_vs_cpu(device, task, vs_n, warmup=30, steps=3, tol=tol,
-                               max_episode_steps=31)
+        phase_rule_card_vs_cpu(device, task, vs_n, warmup=warmup, steps=3, tol=tol,
+                               max_episode_steps=warmup + 1)
     lap("card vs CPU")
     prof = phase_profile(device, task, n, PROFILE_STEPS, warmup=2)
     reset = phase_profile_reset(device, task, n)
@@ -2278,7 +2305,7 @@ def section_render(device: str, card: str, task: str, n: int, episode: int,
     print(
         f"{task} at {n} envs on {card}: functional rollout of {rollout_steps} steps "
         f"{steps_per_s:,.0f} env-steps/s; engine step {prof['launches']:.0f} kernel launches, "
-        f"{prof['device_ms']:.3f} device ms, idle share {prof['idle']:.3f} (the reset branch "
+        f"{prof['said']} (the reset branch "
         f"{reset['launches']:.0f} launches, {reset['said']} of it); {seen}; "
         f"K1, K2 and the PGS kernel launched 0 times ({time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
@@ -2286,19 +2313,19 @@ def section_render(device: str, card: str, task: str, n: int, episode: int,
                 reset_device_ms=reset["device_ms"])
 
 
-def phase_rule_checks(device: str, family: str, tasks: list[str]) -> None:
+def phase_rule_checks(device: str, family: str, tasks: list[str], warmup: int = 8) -> None:
     """A short card-vs-CPU check of each float id of a family by the rule,
-    at ``N_RENDER_SHORT`` envs: 3 checked steps after 8 warm-up steps in
-    episodes of 9 (the last step of an episode, a reset, a first step);
-    none may launch K1, K2 or the PGS kernel."""
+    at ``N_RENDER_SHORT`` envs: 3 checked steps after ``warmup`` warm-up
+    steps in episodes of ``warmup + 1`` (the last step of an episode, a
+    reset, a first step); none may launch K1, K2 or the PGS kernel."""
     kernels = _kernel_launches()
     t0 = time.perf_counter()
     for k in kernels:
         k.launches = 0
     excused = differ = 0
     for task in tasks:
-        v = phase_rule_card_vs_cpu(device, task, N_RENDER_SHORT, warmup=8, steps=3,
-                                   max_episode_steps=9)
+        v = phase_rule_card_vs_cpu(device, task, N_RENDER_SHORT, warmup=warmup, steps=3,
+                                   max_episode_steps=warmup + 1)
         excused, differ = excused + v["excused"], differ + v["differ"]
     _check(all(k.launches == 0 for k in kernels), f"a {family} id launched K1, K2 or PGS")
     print(f"short card-vs-CPU checks of {len(tasks)} {family} ids by the rule passed "
@@ -2480,7 +2507,7 @@ def section_minigrid(device: str, card: str) -> dict:
     _check(all(k.launches == 0 for k in kernels), f"{boss} launched K1, K2 or the PGS kernel")
     print(f"{boss} at {N_MINIGRID} envs on {card}: functional rollout of 16 steps "
           f"{steps_per_s:,.0f} env-steps/s; engine step {prof['launches']:.0f} kernel launches, "
-          f"{prof['device_ms']:.3f} device ms, idle share {prof['idle']:.3f} (the reset branch "
+          f"{prof['said']} (the reset branch "
           f"{reset['launches']:.0f} launches, {reset['said']} of it); K1, K2 "
           f"and the PGS kernel launched 0 times ({time.perf_counter() - t1:.1f} s)")
     t2 = time.perf_counter()
@@ -2551,7 +2578,7 @@ def section_board(device: str, card: str) -> dict:
            f"{ttt} with 2 players or {go} launched K1, K2 or the PGS kernel")
     print(f"{go} at {N_BOARD} envs on {card}, {GO_DEPTH} legal moves in: functional rollout "
           f"of 16 steps {steps_per_s:,.0f} env-steps/s; engine step {prof['launches']:.0f} "
-          f"kernel launches, {prof['device_ms']:.3f} device ms, idle share {prof['idle']:.3f}, "
+          f"kernel launches, {prof['said']}, "
           f"the fixpoint loops' passes on its boards ({float((board != 0).sum()) / N_BOARD:.1f} "
           f"stones a board): chains {passes[0]}, empty regions {passes[1]}; the reset branch "
           f"{reset['launches']:.0f} launches, {reset['said']}; K1, K2 and "
@@ -2565,6 +2592,48 @@ def section_board(device: str, card: str) -> dict:
     return {"tictactoe": tic, "go": dict(prof, steps_per_s=steps_per_s,
                                          reset_launches=reset["launches"],
                                          reset_device_ms=reset["device_ms"])}
+
+
+# highway: Highway-v0 at N_HIGHWAY envs (bench.py:207's row) and
+# Intersection-v0 (the lane-network scenarios: routes, circular lanes,
+# regulated yielding) at N_HIGHWAY, each through every entry point (the
+# gymnasium pool's episodes cut at HIGHWAY_EPISODE steps), card vs CPU by
+# the rule at N_HIGHWAY_VS envs after HIGHWAY_WARMUP steps in episodes of
+# HIGHWAY_WARMUP + 1 (the checked steps end them, reset, step again),
+# profiled (the reset branch alone too) and timed over HIGHWAY_ROLLOUT
+# steps; every other highway id by the rule at N_RENDER_SHORT envs, 3
+# checked steps after HIGHWAY_SHORT_WARMUP in episodes of one more.
+N_HIGHWAY = 2048
+N_HIGHWAY_VS = 256
+HIGHWAY_EPISODE = 5
+HIGHWAY_WARMUP = 8
+HIGHWAY_ROLLOUT = 16
+HIGHWAY_SHORT_WARMUP = 2
+
+
+def section_highway(device: str, card: str) -> dict:
+    """Highway-v0 and Intersection-v0 at ``N_HIGHWAY`` envs through every
+    phase (:func:`section_render`, card vs CPU by the rule of
+    ``ops/thresholds.py``), and every other highway id by the rule; none
+    may launch K1, K2 or the PGS kernel.  Returns the main paths'
+    numbers."""
+    from envpool_tpu_torch.core.registry import registry
+
+    t0 = time.perf_counter()
+    ids = [t for t, (path, _, _) in registry.specs.items()
+           if path.endswith(".highway") and t[0].isupper()]  # the ids, not the aliases
+    out = {}
+    laps = []
+    for task in ("Highway-v0", "Intersection-v0"):
+        out[task] = section_render(device, card, task, N_HIGHWAY, HIGHWAY_EPISODE,
+                                   HIGHWAY_ROLLOUT, N_HIGHWAY_VS, None, warmup=HIGHWAY_WARMUP)
+        laps.append(time.perf_counter())
+    short = [t for t in ids if t not in out]
+    phase_rule_checks(device, "highway", short, warmup=HIGHWAY_SHORT_WARMUP)
+    print(f"highway: {time.perf_counter() - t0:.1f} s (Highway-v0 {laps[0] - t0:.1f}, "
+          f"Intersection-v0 {laps[1] - laps[0]:.1f}, the other {len(short)} ids "
+          f"{time.perf_counter() - laps[1]:.1f})")
+    return out
 
 
 def _pole_outline(states, tol: float = 1e-3):
@@ -2874,14 +2943,14 @@ def main() -> int:
     for task, n, episode, tol, rollout_steps, vs_n in (
         ("CartPole-v1", N_CARTPOLE, 15, CARTPOLE_TOL, 512, None),
         ("FrozenLake8x8-v1", N_FROZEN, 15, 0.0, 512, None),
-        ("HalfCheetah-v4", N_CHEETAH, 20, PHYSICS_TOL, 128, N_MAIN_VS),
-        ("Ant-v4", N_ANT, 10, PHYSICS_TOL, 128, N_MAIN_VS),
-        ("Humanoid-v4", N_HUMANOID, 10, PHYSICS_TOL, 32, N_MAIN_VS),
+        ("HalfCheetah-v4", N_CHEETAH, 20, PHYSICS_TOL, 64, N_MAIN_VS),
+        ("Ant-v4", N_ANT, 10, PHYSICS_TOL, 64, N_MAIN_VS),
+        ("Humanoid-v4", N_HUMANOID, 10, PHYSICS_TOL, 16, N_MAIN_VS),
         ("CheetahRun-v1", N_DMC, 10, PHYSICS_TOL, 128, N_MAIN_VS),
-        ("QuadrupedRun-v1", N_DMC, 10, PHYSICS_TOL, 32, N_MAIN_VS),
+        ("QuadrupedRun-v1", N_DMC, 10, PHYSICS_TOL, 16, N_MAIN_VS),
     ):
         phase_physics(device, card, task, n, episode, tol, rollout_steps, vs_n=vs_n)
-    phase_physics(device, card, "DogRun-v1", N_DMC, 4, PHYSICS_TOL, 8, vs_n=N_DOG_VS)
+    phase_physics(device, card, "DogRun-v1", N_DMC, 4, PHYSICS_TOL, 4, vs_n=N_DOG_VS)
     print(f"[{time.perf_counter() - t_start:.1f} s] main paths done")
     # -- the constraint solver (the PGS kernel), from_pixels, the grid and
     # board families; every other physics id a short card-vs-CPU check: the
@@ -2900,6 +2969,8 @@ def main() -> int:
         print(f"[{time.perf_counter() - t_start:.1f} s] minigrid done")
         section_board(device, card)
         print(f"[{time.perf_counter() - t_start:.1f} s] board done")
+        section_highway(device, card)
+        print(f"[{time.perf_counter() - t_start:.1f} s] highway done")
         phase_exact_checks(device, exact)
         phase_surface_checks(device)
         t_short = time.perf_counter()

@@ -166,9 +166,16 @@ class Draws:
         idx = ((self._bits(None) * len(options)) >> 32).long()
         return self._put(name, const(options, self.sub.device, torch.int8)[idx])
 
-    def uniform(self, name: str, shape: tuple = ()) -> torch.Tensor:
-        """float32 uniform in ``[0, 1)``, ``[N, *shape]``."""
+    def uniform(self, name: str, shape: tuple = (), lo: float = 0.0,
+                hi: float = 1.0) -> torch.Tensor:
+        """float32 uniform in ``[lo, hi)``, ``[N, *shape]``: ``u * (hi - lo)
+        + lo`` in float32, at least ``lo`` (``jax.random.uniform``'s
+        formula)."""
         k = int(np.prod(shape)) if shape else None
         slot = self.slot
         self.slot += k or 1
-        return self._put(name, uniform(self.sub, slot, k).reshape(-1, *shape))
+        u = uniform(self.sub, slot, k).reshape(-1, *shape)
+        if (lo, hi) != (0.0, 1.0):
+            lo32, hi32 = np.float32(lo), np.float32(hi)
+            u = torch.clamp_min(u * float(hi32 - lo32) + float(lo32), float(lo32))
+        return self._put(name, u)

@@ -4,6 +4,7 @@ order, so that ``list_all_envs`` lists the ids as it does)."""
 import envpool_tpu_torch.envs.atari.registration  # noqa: F401
 import envpool_tpu_torch.envs.board.registration  # noqa: F401
 import envpool_tpu_torch.envs.classic_control.registration  # noqa: F401
+import envpool_tpu_torch.envs.highway.registration  # noqa: F401
 import envpool_tpu_torch.envs.minigrid.registration  # noqa: F401
 import envpool_tpu_torch.envs.mujoco_dmc.registration  # noqa: F401
 import envpool_tpu_torch.envs.mujoco_gym.registration  # noqa: F401

@@ -1,7 +1,7 @@
 """The rule that holds a float env of the port to a reference that
 computes the same floats by other instructions (the card against the
 CPU, the port against the JAX package): procgen's scroller and platformer
-games and vizdoom.
+games, vizdoom and highway.
 
 Their state is float (positions, speeds, angles), a float comparison
 decides a hit, a pickup or a block, and rounding decides a pixel.  Two
@@ -171,17 +171,21 @@ def hold_step(env, state: Any, action: torch.Tensor, draws: dict, reset: torch.T
                     "terminated": out.terminated}
 
         excused[idx] = near_threshold(step, _rows(state, idx), tol)
-    # The frame rule, on the rows not excused whose frames differ.
-    g_obs, w_obs = got["ts"]["obs"], want["ts"]["obs"]
-    edge = torch.zeros_like(w_obs, dtype=torch.bool)
-    trunc = torch.zeros_like(edge)
-    differ = (g_obs != w_obs).reshape(g_obs.shape[0], -1).any(1) & ~excused
-    if bool(differ.any()):
-        idx = differ.nonzero()[:, 0]
-        masks = threshold_pixels(env.frame_float, _rows(want["state"], idx), tol)
-        edge[idx], trunc[idx] = (env.frame_mask(m, reset[idx]) for m in masks)
-    keep = ~excused
-    v = frame_rule_violations(g_obs[keep], w_obs[keep], edge[keep], trunc[keep])
+    # The frame rule, on the rows not excused whose frames differ (an env
+    # whose obs is not a uint8 frame has none: its obs is held above).
+    g_obs, w_obs = got["ts"].get("obs"), want["ts"].get("obs")
+    if w_obs is None or w_obs.dtype != torch.uint8:
+        v = dict(pixels=0, differ=0, at_edge=0, at_trunc=0, violations=0, max_diff=0)
+    else:
+        edge = torch.zeros_like(w_obs, dtype=torch.bool)
+        trunc = torch.zeros_like(edge)
+        differ = (g_obs != w_obs).reshape(g_obs.shape[0], -1).any(1) & ~excused
+        if bool(differ.any()):
+            idx = differ.nonzero()[:, 0]
+            masks = threshold_pixels(env.frame_float, _rows(want["state"], idx), tol)
+            edge[idx], trunc[idx] = (env.frame_mask(m, reset[idx]) for m in masks)
+        keep = ~excused
+        v = frame_rule_violations(g_obs[keep], w_obs[keep], edge[keep], trunc[keep])
     v.update(envs=int(bad.numel()), mismatched=int(bad.sum()), excused=int(excused.sum()),
              failed=int((bad & ~excused).sum()))
     return v

@@ -67,7 +67,7 @@ def test_registry_surface():
         or t.startswith("Machine2600")
         or registry.specs[t][0].endswith(
             (".classic_control", ".mujoco_gym", ".mujoco_dmc", ".toy_text", ".procgen",
-             ".vizdoom", ".minigrid", ".board"))
+             ".vizdoom", ".minigrid", ".board", ".highway"))
     ]
     assert envpool_tpu_torch.list_all_envs() == ported
     with pytest.raises(ValueError):
