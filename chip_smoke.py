@@ -41,7 +41,10 @@ the board games' TicTacToe-v1 and Go19x19-v1 at 8192 envs (card vs CPU
 equal in every field, by legal moves; every other board id exact at 64
 across a reset), highway's Highway-v0 and Intersection-v0 at 2048 envs
 (card vs CPU by the rule at 256; every other highway id by the rule at
-64 across a reset), and the engine's remaining surface on the card:
+64 across a reset), robotics' FetchPickAndPlace-v4 and HandReach-v3 and
+MetaWorld/PickPlace-v3 at 8192 envs (card vs CPU by the rule at 256; the
+other 155 robotics ids and 49 MetaWorld ids by the rule at 64 across a
+reset), and the engine's remaining surface on the card:
 ``render()``, ``save_state`` / ``load_state``, ``record_dir`` and two
 wrappers.  The CPU's side of the physics short checks runs in a worker
 process while the card goes on with the next id, and the main paths'
@@ -2174,15 +2177,21 @@ def _kernel_launches() -> tuple:
 
 
 def phase_rule_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: int,
-                           tol: float | None = None, **make_kwargs) -> dict:
-    """After ``warmup`` random steps on the card, ``steps`` engine steps
-    each taken on the card and on the CPU from the same pool state and
-    action, held by ``ops.thresholds.hold_step``: every field but the
-    frames within ``tol`` (``STATE_TOL`` by default; 0: equal) of the
-    CPU's, an env near a float threshold excused (at most
-    ``MAX_EXCUSED_SHARE`` of the env steps), frames equal but at pixels
-    float rounding decides (at most ``MAX_PIXEL_SHARE`` of them differ),
-    with resets among the checked steps.  Returns the totals."""
+                           tol: float | None = None, policy=None, reached=None,
+                           **make_kwargs) -> dict:
+    """After ``warmup`` steps on the card, ``steps`` engine steps each
+    taken on the card and on the CPU from the same pool state and action,
+    held by ``ops.thresholds.hold_step``: every field but the frames
+    within ``tol`` (``STATE_TOL`` by default; 0: equal) of the CPU's, an
+    env near a float threshold excused (at most ``MAX_EXCUSED_SHARE`` of
+    the env steps), frames equal but at pixels float rounding decides (at
+    most ``MAX_PIXEL_SHARE`` of them differ), with resets among the
+    checked steps.  The card's steps run under a caller that allows TF32,
+    which the engine must not let into the env's matmuls.  The actions are
+    uniform at random, or ``policy(env_state, generator)``'s; with
+    ``reached = (what, fn)``, ``fn(timestep, env_state)`` on the CPU's side
+    of a checked step must hold for some env (a mechanism that the checked
+    steps must reach).  Returns the totals."""
     import torch
 
     import envpool_tpu_torch
@@ -2198,15 +2207,28 @@ def phase_rule_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: i
     eng = card.engine
     gen = torch.Generator().manual_seed(SEED)
     sample = _sampler(_spec(card), n, "cpu", env.max_num_players)
+    act_for = (lambda st: sample(gen)) if policy is None else (lambda st: policy(st, gen))
+    matmul = torch.backends.cuda.matmul
+
+    def card_step(ps, act):
+        matmul.fp32_precision = "tf32"  # a caller that allows TF32
+        try:
+            ps, ts = eng.step(ps, {"action": act.to(device)})
+            _check(matmul.fp32_precision == "tf32",
+                   f"{task}: the engine did not restore the caller's TF32 setting")
+        finally:
+            matmul.fp32_precision = "ieee"
+        return ps, ts
+
     ps, _ = eng.reset(card.pool_state, torch.ones(n, dtype=torch.bool, device=device))
     for _ in range(warmup):
-        ps, _ = eng.step(ps, {"action": sample(gen).to(device)})
-    totals, resets, t0 = {}, 0, time.perf_counter()
+        ps, _ = card_step(ps, act_for(ps.env_state))
+    totals, resets, hits, t0 = {}, 0, 0, time.perf_counter()
     for t in range(steps):
-        act = sample(gen)
         ps_cpu = PoolState(*(_tree_map(lambda x: x.cpu(), f) for f in (
             ps.env_state, ps.key, ps.elapsed, ps.autoreset, ps.full_reset)))
-        ps, got = eng.step(ps, {"action": act.to(device)})
+        act = act_for(ps_cpu.env_state)
+        ps, got = card_step(ps, act)
         cps, want = cpu.step(ps_cpu, {"action": act})
         draws = env.step_draws(rng.split(ps_cpu.key)[1])
         v = thresholds.hold_step(
@@ -2219,14 +2241,20 @@ def phase_rule_card_vs_cpu(device: str, task: str, n: int, warmup: int, steps: i
         for k, x in v.items():
             totals[k] = totals.get(k, 0) + x
         resets += int(ps_cpu.autoreset.sum())
+        if reached is not None:
+            hits += int(reached[1](want, cps.env_state).sum())
     _check(totals["excused"] <= thresholds.MAX_EXCUSED_SHARE * totals["envs"],
            f"{task}: {totals['excused']} of {totals['envs']} env steps excused")
     _check(totals["differ"] <= thresholds.MAX_PIXEL_SHARE * totals["pixels"],
            f"{task}: {totals['differ']} of {totals['pixels']} pixels differ")
     _check(resets > 0, f"{task}: no reset among the checked steps")
+    _check(reached is None or hits > 0, f"{task}: no env {reached and reached[0]} "
+           "in the checked steps")
     print(f"  {task} card vs CPU, {n} envs x {steps} steps from the same states (after "
-          f"{warmup} warm-up steps; {resets} resets): fields "
-          + ("equal" if tol == 0 else f"within {tol:g}") + f", {totals['excused']} env steps "
+          f"{warmup} warm-up steps; {resets} resets"
+          + (f"; {hits} env steps {reached[0]}" if reached else "") + "; the caller allowing "
+          "TF32): fields " + ("equal" if tol == 0 else f"within {tol:g}")
+          + f", {totals['excused']} env steps "
           f"excused near a threshold; {totals['differ']} of {totals['pixels']} pixels differ "
           f"({totals['at_edge']} where a nudge flips them, {totals['at_trunc']} at a "
           f"rounding tie), 0 against the rule ({time.perf_counter() - t0:.1f} s)")
@@ -2267,11 +2295,13 @@ def phase_profile_reset(device: str, task: str, n: int, calls: int = PROFILE_RES
 
 def section_render(device: str, card: str, task: str, n: int, episode: int,
                    rollout_steps: int, vs_n: int, tol: float | None,
-                   exact_state: bool = False, legal: bool = False, warmup: int = 30) -> dict:
+                   exact_state: bool = False, legal: bool = False, warmup: int = 30,
+                   policy=None, reached=None) -> dict:
     """``task`` at ``n`` envs through every entry point (the gymnasium
     pool's episodes cut at ``episode`` steps), card vs CPU at ``vs_n`` envs
     after ``warmup`` steps in episodes of ``warmup + 1``
-    (:func:`phase_rule_card_vs_cpu`, ``tol`` 0: equal; with
+    (:func:`phase_rule_card_vs_cpu`, ``tol`` 0: equal, driven by
+    ``policy`` and reaching ``reached`` where given; with
     ``exact_state``, :func:`phase_state_card_vs_cpu`, by legal moves with
     ``legal``), a profile and a
     functional rollout; none of it may launch K1, K2 or the PGS kernel.
@@ -2294,7 +2324,7 @@ def section_render(device: str, card: str, task: str, n: int, episode: int,
                                 max_episode_steps=warmup + 1)
     else:
         phase_rule_card_vs_cpu(device, task, vs_n, warmup=warmup, steps=3, tol=tol,
-                               max_episode_steps=warmup + 1)
+                               policy=policy, reached=reached, max_episode_steps=warmup + 1)
     lap("card vs CPU")
     prof = phase_profile(device, task, n, PROFILE_STEPS, warmup=2)
     reset = phase_profile_reset(device, task, n)
@@ -2636,6 +2666,97 @@ def section_highway(device: str, card: str) -> dict:
     return out
 
 
+# robotics and MetaWorld: FetchPickAndPlace-v4 (the object, the grasp, the
+# goal in the air, the rejection-sampled reset), HandReach-v3 (the
+# fingertips' forward kinematics on the committed Shadow Hand model) and
+# MetaWorld/PickPlace-v3 (the full caging reward law) at N_GOAL envs, each
+# through every entry point (the gymnasium pool's episodes cut at
+# GOAL_EPISODE steps), card vs CPU by the rule at N_GOAL_VS envs after a
+# warm-up in episodes of one step more, profiled (the reset branch alone
+# too) and timed over GOAL_ROLLOUT steps; every other id of both families
+# by the rule at N_RENDER_SHORT envs, 3 checked steps after
+# GOAL_SHORT_WARMUP in episodes of one more.  Uniform random actions never
+# grasp, so the two pick-and-place paths are steered at the object
+# (:func:`_steer`): Fetch's warm-up of 8 steps ends with the object grasped
+# and lifted, MetaWorld's of 16 (1 cm a step) where the caging reward and
+# the reward are above 0 in about half the envs.
+N_GOAL = 8192
+N_GOAL_VS = 256
+GOAL_EPISODE = 5
+GOAL_ROLLOUT = 64
+GOAL_SHORT_WARMUP = 2
+
+
+def _steer(tip: str, scale: float, near: float, close: float, lift: float, noise: float):
+    """A policy that moves the gripper (state field ``tip``) at the object
+    (``obj_pos``), at full speed beyond ``scale``, closes it (gripper
+    action ``close``) within ``near`` of the object and lifts there
+    (``lift``), with Gaussian noise of scale ``noise``: the grasp that
+    uniform random actions never reach."""
+    import torch
+
+    def act(st, gen):
+        d = (st["obj_pos"] - st[tip]).cpu()
+        at = d.norm(dim=1) < near
+        a = torch.zeros(len(d), 4)
+        a[:, :3] = (d / scale).clamp(-1, 1)
+        a[:, 2] += torch.where(at, lift, 0.0)
+        a[:, 3] = torch.where(at, close, -close)
+        return (a + noise * torch.randn(a.shape, generator=gen)).clamp(-1, 1)
+
+    return act
+
+
+def _goal_mains() -> dict:
+    """Each goal-family main path's card-vs-CPU warm-up, policy and the
+    mechanism its checked steps must reach."""
+    return {
+        "FetchPickAndPlace-v4": dict(
+            warmup=8, policy=_steer("grip_pos", 0.0315, 0.04, -1.0, 0.8, 0.2),
+            reached=("holding the object in the air",
+                     lambda ts, st: st["grasped"] & (st["obj_pos"][:, 2] > 0.435))),
+        "HandReach-v3": dict(warmup=8),
+        "MetaWorld/PickPlace-v3": dict(
+            warmup=16, policy=_steer("tcp", 0.01, 0.05, 1.0, 0.6, 0.3),
+            reached=("with a caging reward and a reward above 0",
+                     lambda ts, st: (ts["info:grasp_reward"] > 0) & (ts["reward"] > 0))),
+    }
+
+
+def _goal_family(device: str, card: str, family: str, mains: tuple) -> dict:
+    """The main paths ``mains`` of the family whose registry path ends in
+    ``family`` through every phase (:func:`section_render`), and every
+    other id of it by the rule; none may launch K1, K2 or the PGS kernel.
+    Returns the main paths' numbers."""
+    from envpool_tpu_torch.core.registry import registry
+
+    t0 = time.perf_counter()
+    ids = [t for t, (path, _, _) in registry.specs.items() if path.endswith(family)]
+    out, laps = {}, [t0]
+    for task in mains:
+        out[task] = section_render(device, card, task, N_GOAL, GOAL_EPISODE, GOAL_ROLLOUT,
+                                   N_GOAL_VS, None, **_goal_mains()[task])
+        laps.append(time.perf_counter())
+    short = [t for t in ids if t not in out]
+    phase_rule_checks(device, family.lstrip("."), short, warmup=GOAL_SHORT_WARMUP)
+    print(f"{family.lstrip('.')}: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{t} {b - a:.1f}" for t, a, b in zip(mains, laps, laps[1:]))
+          + f", the other {len(short)} ids {time.perf_counter() - laps[-1]:.1f})")
+    return out
+
+
+def section_robotics(device: str, card: str) -> dict:
+    """FetchPickAndPlace-v4 and HandReach-v3 at ``N_GOAL`` envs through
+    every phase, and the other 155 robotics ids by the rule."""
+    return _goal_family(device, card, ".robotics", ("FetchPickAndPlace-v4", "HandReach-v3"))
+
+
+def section_metaworld(device: str, card: str) -> dict:
+    """MetaWorld/PickPlace-v3 at ``N_GOAL`` envs through every phase, and
+    the other 49 MetaWorld ids by the rule."""
+    return _goal_family(device, card, ".metaworld", ("MetaWorld/PickPlace-v3",))
+
+
 def _pole_outline(states, tol: float = 1e-3):
     """``[N, 400, 600]``: the pixels of CartPole frames that lie within
     ``tol`` pixel of the pole's outline, in float64 (where a float32 cos or
@@ -2971,6 +3092,10 @@ def main() -> int:
         print(f"[{time.perf_counter() - t_start:.1f} s] board done")
         section_highway(device, card)
         print(f"[{time.perf_counter() - t_start:.1f} s] highway done")
+        section_robotics(device, card)
+        print(f"[{time.perf_counter() - t_start:.1f} s] robotics done")
+        section_metaworld(device, card)
+        print(f"[{time.perf_counter() - t_start:.1f} s] metaworld done")
         phase_exact_checks(device, exact)
         phase_surface_checks(device)
         t_short = time.perf_counter()

@@ -15,6 +15,11 @@ Common-field bookkeeping (``elapsed_step``, ``done``, ``trunc``,
 * ``discount = float(!done)`` unless the env overrides it
 * ``step_type``: 0 (FIRST) on reset, 2 (LAST) when done, else 1 (MID)
 
+The env's branches run their float32 matmuls without TF32 whatever the
+caller set (:func:`full_fp32`): the JAX package computes them in full
+float32, and a success threshold of 1 cm sits within TF32's error of a
+forward kinematics pass.
+
 Every function returns new tensors and never writes into its input state:
 timesteps still queued in an adapter may be views of an earlier state.
 """
@@ -26,6 +31,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..ops.batched import full_fp32
 from . import rng
 from .env import TorchEnv, tree_where
 
@@ -96,21 +102,24 @@ class Engine:
 
     def _reset_rows(self, key: torch.Tensor):
         key, sub = rng.split(key)
-        state, obs = self.env.reset_env(self.env.reset_draws(sub))
+        with full_fp32():
+            state, obs = self.env.reset_env(self.env.reset_draws(sub))
         return state, key, obs
 
     def _step_rows(self, env_state, key, elapsed, do_reset, full_reset, action):
         """Batched transition with fused auto-reset (both branches + select)."""
         env = self.env
         key, sub = rng.split(key)
-        # Reset branch (sees the terminal state for continuation semantics).
-        r_state, r_obs = env.reset_env_from(
-            env_state, env.reset_draws(sub), full_reset
-        )
-        # Step branch.
-        out = env.step_env(
-            env_state, env.single_action(action), env.step_draws(sub)
-        )
+        with full_fp32():
+            # Reset branch (sees the terminal state for continuation
+            # semantics).
+            r_state, r_obs = env.reset_env_from(
+                env_state, env.reset_draws(sub), full_reset
+            )
+            # Step branch.
+            out = env.step_env(
+                env_state, env.single_action(action), env.step_draws(sub)
+            )
         new_elapsed = torch.where(do_reset, 0, elapsed + 1).to(torch.int32)
         time_trunc = new_elapsed >= env.max_episode_steps
         if out.truncated is not None:

@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.batched import const
+from ..ops.batched import const, first_true
 
 __all__ = [
     "seed_keys",
@@ -36,6 +36,11 @@ __all__ = [
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
+# Draws.accept: candidates a round, the slots between two rounds' first
+# slots, and the rounds before it gives up.
+ACCEPT_K = 16
+_ROUND_SLOTS = 1 << 20
+_MAX_ROUNDS = 64
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -166,16 +171,62 @@ class Draws:
         idx = ((self._bits(None) * len(options)) >> 32).long()
         return self._put(name, const(options, self.sub.device, torch.int8)[idx])
 
-    def uniform(self, name: str, shape: tuple = (), lo: float = 0.0,
-                hi: float = 1.0) -> torch.Tensor:
+    def uniform(self, name: str, shape: tuple = (), lo=0.0, hi=1.0) -> torch.Tensor:
         """float32 uniform in ``[lo, hi)``, ``[N, *shape]``: ``u * (hi - lo)
         + lo`` in float32, at least ``lo`` (``jax.random.uniform``'s
-        formula)."""
+        formula).  ``lo`` and ``hi`` are floats or, per component of the
+        last axis, sequences of ``shape[-1]`` floats."""
         k = int(np.prod(shape)) if shape else None
         slot = self.slot
         self.slot += k or 1
         u = uniform(self.sub, slot, k).reshape(-1, *shape)
-        if (lo, hi) != (0.0, 1.0):
-            lo32, hi32 = np.float32(lo), np.float32(hi)
+        lo32, hi32 = np.float32(lo), np.float32(hi)
+        if lo32.ndim:
+            dev = self.sub.device
+            span = const(tuple(float(x) for x in hi32 - lo32), dev)
+            low = const(tuple(float(x) for x in lo32), dev)
+            u = torch.maximum(u * span + low, low)
+        elif (lo, hi) != (0.0, 1.0):
             u = torch.clamp_min(u * float(hi32 - lo32) + float(lo32), float(lo32))
         return self._put(name, u)
+
+    def normal(self, name: str, shape: tuple = ()) -> torch.Tensor:
+        """float32 standard normal, ``[N, *shape]`` (:func:`normal`'s
+        Box-Muller, two uniform slots per value)."""
+        k = int(np.prod(shape)) if shape else 1
+        slot = self.slot
+        self.slot += 2 * k
+        return self._put(name, normal(self.sub, slot, k).reshape(-1, *shape))
+
+    def accept(self, name: str, draw, ok, k: int = ACCEPT_K) -> torch.Tensor:
+        """A rejection sampler in one round for nearly every row: ``draw(d,
+        k)`` makes ``[N, k, ...]`` candidates from a :class:`Draws` ``d``,
+        ``ok(c)`` says ``[N, k]`` which satisfy the predicate, and each row
+        takes its first good candidate.  The rows with none (for ``k``
+        candidates each accepted with probability ``p``, a share of ``(1 -
+        p) ** k``) draw ``k`` more from slots far past the plan's, until
+        every row has one: one host sync per call.  A row's value depends on
+        its own stream alone, and the draws after this one take the slots
+        after the first round's."""
+        base = self.slot
+        value, found = None, None
+        for r in range(_MAX_ROUNDS):
+            sub = Draws(self.sub)
+            sub.slot = base + r * _ROUND_SLOTS
+            cand = draw(sub, k)
+            if r == 0:
+                self.slot = sub.slot
+            good = ok(cand)
+            first = first_true(good)
+            pick = cand.gather(1, first.reshape(-1, 1, *([1] * (cand.ndim - 2))).expand(
+                -1, 1, *cand.shape[2:]))[:, 0]
+            hit = good.any(1)
+            if value is None:
+                value, found = pick, hit
+            else:
+                grow = hit & ~found
+                value = torch.where(grow.reshape(-1, *([1] * (value.ndim - 1))), pick, value)
+                found = found | grow
+            if bool(found.all()):
+                return self._put(name, value)
+        raise RuntimeError(f"{name}: no candidate accepted in {_MAX_ROUNDS * k} draws")

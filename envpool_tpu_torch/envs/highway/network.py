@@ -23,7 +23,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ...ops.batched import mod
+from ...ops.batched import asin, atan, atan2, cos, f32, mod, pow, sin, tan
 
 _PI = math.pi
 LANE_W = 4.0
@@ -44,30 +44,6 @@ _LC_MIN_ACC_GAIN = 0.2
 
 STRAIGHT, CIRCULAR, SINE = 0, 1, 2
 K_MDP, K_IDM, K_OBSTACLE, K_PLAIN = 0, 1, 2, 3
-
-
-def f32(c: float) -> float:
-    """A Python float rounded to float32, as JAX rounds a weakly typed
-    constant against a float32 array."""
-    return float(np.float32(c))
-
-
-def _rounded(fn):
-    """``fn`` in float64, rounded once to float32.  The card's and the CPU's
-    float32 ``sin``, ``atan2`` or ``pow`` differ by an ulp on some inputs,
-    and the traffic's decisions (a lane change, a yield, a crash) amplify
-    an ulp past any tolerance; rounded from float64, both give the
-    correctly rounded float32 value, the same bits."""
-    def f(*args):
-        return fn(*(a.double() if isinstance(a, torch.Tensor) else a for a in args)).float()
-
-    f.__name__ = fn.__name__
-    f.__doc__ = f"``torch.{fn.__name__}`` in float64, rounded once to float32."
-    return f
-
-
-sin, cos, tan, asin, atan, atan2, pow = (_rounded(f) for f in (
-    torch.sin, torch.cos, torch.tan, torch.asin, torch.atan, torch.atan2, torch.pow))
 
 
 def notzero(x: torch.Tensor) -> torch.Tensor:

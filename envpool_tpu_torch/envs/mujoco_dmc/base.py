@@ -30,7 +30,6 @@ from ...physics.dynamics import (
     ContactParams,
     _kin,
     _vel_from_kin,
-    full_fp32,
     mass_matrix,
 )
 from ...physics.kinematics import _mv, fk, model_tensors
@@ -253,20 +252,18 @@ class DmcEnv(PhysicsEnv):
         return {"action": ArraySpec(np.float32, (self.model.nu,), -1.0, 1.0)}
 
     def reset_env(self, draws):
-        with full_fp32():
-            qpos, qvel, extras = self.init_state(draws)
-            st = {"qpos": qpos, "qvel": qvel, "extras": extras}
-            return st, self.obs_fields(st)
+        qpos, qvel, extras = self.init_state(draws)
+        st = {"qpos": qpos, "qvel": qvel, "extras": extras}
+        return st, self.obs_fields(st)
 
     def step_env(self, state, action, draws):
         action = action.reshape(-1, self.model.nu).to(torch.float32)
-        with full_fp32():
-            qpos, qvel = self.physics_step(state, action)
-            st = self.next_state(state, action, qpos, qvel)
-            extras = st["extras"]
-            obs = self.obs_fields(st)
-            reward = self.reward_dmc(qpos, qvel, action, extras).to(torch.float32)
-            term = self.terminated_dmc(qpos, qvel, extras)
+        qpos, qvel = self.physics_step(state, action)
+        st = self.next_state(state, action, qpos, qvel)
+        extras = st["extras"]
+        obs = self.obs_fields(st)
+        reward = self.reward_dmc(qpos, qvel, action, extras).to(torch.float32)
+        term = self.terminated_dmc(qpos, qvel, extras)
         if term is None:
             terminated = torch.zeros(qpos.shape[0], dtype=torch.bool, device=qpos.device)
         else:

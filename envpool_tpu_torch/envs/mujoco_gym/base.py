@@ -26,7 +26,7 @@ import torch
 from ...core import rng
 from ...core.env import EnvOut
 from ...core.specs import ArraySpec
-from ...physics.dynamics import ContactParams, full_fp32
+from ...physics.dynamics import ContactParams
 from ...physics.model import load_model
 from ..physics_env import PhysicsEnv
 
@@ -177,28 +177,24 @@ class MujocoGymEnv(PhysicsEnv):
         return out
 
     def reset_env(self, draws):
-        # Observations and rewards take tree passes and einsums too, so
-        # they run without TF32 as the physics step does.
-        with full_fp32():
-            qpos, qvel = self.reset_qpos_qvel(draws)
-            st = {"qpos": qpos, "qvel": qvel, "qpos0": qpos, "qvel0": qvel}
-            zero = qpos.new_zeros(qpos.shape[0])
-            info = {k.replace("info:", ""): zero for k in self.extra_info_spec()}
-            return st, self._obs_dict(st, info)
+        qpos, qvel = self.reset_qpos_qvel(draws)
+        st = {"qpos": qpos, "qvel": qvel, "qpos0": qpos, "qvel0": qvel}
+        zero = qpos.new_zeros(qpos.shape[0])
+        info = {k.replace("info:", ""): zero for k in self.extra_info_spec()}
+        return st, self._obs_dict(st, info)
 
     def step_env(self, state, action, draws):
         action = action.reshape(-1, self.model.nu).to(torch.float32)
         qpos, qvel = state["qpos"], state["qvel"]
-        with full_fp32():
-            new_qpos, new_qvel = self.physics_step(state, action)
-            before = {"qpos": qpos, "qvel": qvel}
-            after = {"qpos": new_qpos, "qvel": new_qvel}
-            reward, terminated, info = self.reward_done(before, after, action)
-            st = {
-                "qpos": new_qpos,
-                "qvel": new_qvel,
-                "qpos0": state["qpos0"],
-                "qvel0": state["qvel0"],
-            }
-            obs = self._obs_dict(st, info)
+        new_qpos, new_qvel = self.physics_step(state, action)
+        before = {"qpos": qpos, "qvel": qvel}
+        after = {"qpos": new_qpos, "qvel": new_qvel}
+        reward, terminated, info = self.reward_done(before, after, action)
+        st = {
+            "qpos": new_qpos,
+            "qvel": new_qvel,
+            "qpos0": state["qpos0"],
+            "qvel0": state["qvel0"],
+        }
+        obs = self._obs_dict(st, info)
         return EnvOut(state=st, obs=obs, reward=reward, terminated=terminated)

@@ -22,7 +22,7 @@ from ...core import rng
 from ...core.env import EnvOut, TorchEnv
 from ...core.specs import ArraySpec
 from ...ops.image import resize_area
-from ...ops.batched import const, first_argmin, mod
+from ...ops.batched import const, first_argmin, full_fp32, mod
 from . import buttons as B
 from .buttons import build_action_set
 from .raycast import (
@@ -319,8 +319,6 @@ class DoomEnv(TorchEnv):
             chw = frame.permute(0, 3, 1, 2)
         h, w = self._hw
         if (h, w) != (H, W):
-            from ...physics.dynamics import full_fp32
-
             with full_fp32():
                 chw = resize_area(chw, (h, w), dt)
         return chw

@@ -29,11 +29,11 @@ the JAX code forces float32 matmul precision in its step.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import torch
 
+from ..ops.batched import full_fp32
 from .kinematics import _mv, fk, fk_dof, integrate_qpos, model_tensors
 from .linalg import spd_solve
 from .model import PhysModel
@@ -75,23 +75,6 @@ class ContactParams(NamedTuple):
 
 def _use_solver(contact: ContactParams) -> bool:
     return contact.solver == "mujoco"
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """Run CUDA float32 matmuls without TF32 inside the block, whatever the
-    caller set; restore the caller's setting after.
-
-    Uses the backend's ``fp32_precision`` setting, not the older
-    ``allow_tf32`` flag: torch refuses some reads once both have been set.
-    """
-    matmul = torch.backends.cuda.matmul
-    before = matmul.fp32_precision
-    matmul.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        matmul.fp32_precision = before
 
 
 def site_positions(model: PhysModel, q: torch.Tensor) -> torch.Tensor:

@@ -28,8 +28,10 @@ import numpy as np
 # ``swimmer._make_model(n)``) by ``dmc:<domain>_<n>``, and one that a suite
 # module generates for a task (lqr, quadruped, manipulator, stacker, dog) by
 # ``dmc:<domain>_<task>`` (``tools/export_models._GENERATED``; the four dog
-# locomotion tasks share ``dmc:dog``).
+# locomotion tasks share ``dmc:dog``).  A gymnasium_robotics model goes by
+# its path under that package's ``envs/assets/`` (``hand/reach.xml``).
 ASSETS = {
+    "hand/reach.xml": "gr_hand_reach.npz",
     "ant.xml": "ant.npz",
     "half_cheetah.xml": "half_cheetah.npz",
     "hopper.xml": "hopper.npz",

@@ -9,6 +9,11 @@ pickle, ``mujoco``, ``gymnasium`` or ``dm_control``:
 * an XML name: from gymnasium's MuJoCo assets
   (``gymnasium/envs/mujoco/assets/``, MIT-licensed: every XML the
   Gym-MuJoCo ids use);
+* ``hand/reach.xml``: gymnasium_robotics' Shadow Hand model
+  (``gymnasium_robotics/envs/assets/hand/``, MIT-licensed; version 1.4.1
+  wrote the committed data), its XML files copied with the
+  ``apirate`` attribute that mujoco 3 refuses stripped, as the JAX
+  package's ``envs/robotics/hand.py`` loads it (:func:`robotics_xml`);
 * ``dmc:<domain>``: the dm_control suite's ``<domain>.xml`` with the
   suite's shared assets (``suite.common.ASSETS``), as the JAX package's
   ``envs/mujoco_dmc/base.py`` loads it (Apache-2.0);
@@ -24,8 +29,8 @@ Swimmer's data also holds the ``nose`` geom's offset and body and the
 cheetah's holds CheetahRun's bank of settled reset states
 (:func:`cheetah_bank`); the models of ``NAMED`` hold the joint and geom
 names, site sizes and the like that their tasks read
-(:func:`named_constants`).  It needs ``mujoco``, ``gymnasium`` and
-``dm_control``::
+(:func:`named_constants`).  It needs ``mujoco``, ``gymnasium``,
+``gymnasium_robotics`` and ``dm_control``::
 
     python -m envpool_tpu_torch.tools.export_models
 
@@ -40,6 +45,9 @@ from __future__ import annotations
 import argparse
 import importlib
 import os
+import re
+import shutil
+import tempfile
 
 import numpy as np
 
@@ -424,6 +432,29 @@ def gymnasium_xml(name: str) -> str:
     )
 
 
+def robotics_xml(name: str, workdir: str) -> str:
+    """The path of gymnasium_robotics' model ``name`` (``hand/reach.xml``)
+    in a copy of its assets under ``workdir`` whose XML files have the
+    ``apirate`` attribute stripped, as ``envpool_tpu/envs/robotics/hand.py``
+    strips it."""
+    import gymnasium_robotics
+
+    base = os.path.join(os.path.dirname(gymnasium_robotics.__file__), "envs", "assets")
+    copy = os.path.join(workdir, "assets")
+    shutil.copytree(base, copy)
+    for root, _, files in os.walk(copy):
+        for f in files:
+            if f.endswith(".xml"):
+                path = os.path.join(root, f)
+                with open(path) as fh:
+                    text = fh.read()
+                stripped = re.sub(r'\sapirate="[^"]*"', "", text)
+                if stripped != text:
+                    with open(path, "w") as fh:
+                        fh.write(stripped)
+    return os.path.join(copy, name)
+
+
 # dm_control models built by a suite module's generator rather than read
 # from ``<domain>.xml``: name -> (module, generator, arguments).  The JAX
 # package builds them with these arguments (``envs/mujoco_dmc/tasks2.py``,
@@ -540,7 +571,10 @@ def main(argv: list[str] | None = None) -> None:
         return
     for name, data in sorted(ASSETS.items()):
         path = os.path.join(ASSET_DIR, data)
-        if name.startswith("dmc:"):
+        if name.startswith("hand/"):
+            with tempfile.TemporaryDirectory() as work:
+                save_npz(from_mjcf(robotics_xml(name, work)), path)
+        elif name.startswith("dmc:"):
             m = dmc_mj_model(name)
             consts = (swimmer_constants(m) if name.startswith("dmc:swimmer")
                       else named_constants(m) if name in NAMED else None)

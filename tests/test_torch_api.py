@@ -67,7 +67,7 @@ def test_registry_surface():
         or t.startswith("Machine2600")
         or registry.specs[t][0].endswith(
             (".classic_control", ".mujoco_gym", ".mujoco_dmc", ".toy_text", ".procgen",
-             ".vizdoom", ".minigrid", ".board", ".highway"))
+             ".vizdoom", ".minigrid", ".board", ".highway", ".robotics", ".metaworld"))
     ]
     assert envpool_tpu_torch.list_all_envs() == ported
     with pytest.raises(ValueError):
@@ -108,11 +108,16 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 def test_import_loads_neither_jax_nor_envpool_tpu():
+    """Nor, making and stepping a robotics id (the Shadow Hand's committed
+    model) and a MetaWorld id on the CPU, gymnasium_robotics or mujoco."""
     code = (
-        "import sys, envpool_tpu_torch, envpool_tpu_torch.interop;"
+        "import sys, numpy as np, envpool_tpu_torch, envpool_tpu_torch.interop;"
         "import envpool_tpu_torch.envs.atari.obs_ties;"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'envpool_tpu' or m.startswith('envpool_tpu.')];"
+        "[envpool_tpu_torch.make(t, env_type='gymnasium', num_envs=2, device='cpu')"
+        " .step(np.zeros((2, n), np.float32)) for t, n in"
+        " (('HandReach-v3', 20), ('MetaWorld/PickPlace-v3', 4))];"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'envpool_tpu', 'gymnasium_robotics', 'mujoco')];"
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

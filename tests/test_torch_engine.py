@@ -319,3 +319,47 @@ def test_interop_round_trip():
     for a, b in zip(flat_a, flat_b):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+class _MatmulSettings(torch.overrides.TorchFunctionMode):
+    """Records the CUDA float32 matmul setting at every matrix product."""
+
+    PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
+                torch.Tensor.__rmatmul__, torch.einsum, torch.bmm, torch.mm}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.PRODUCTS:
+            self.seen.append(torch.backends.cuda.matmul.fp32_precision)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("task", [
+    "HandReach-v3", "HandManipulateBlock-v1", "AdroitHandDoor-v1", "FrankaKitchen-v1",
+    "Pusher-v4", "WalkerWalk-v1",
+])
+def test_env_matmuls_run_in_full_fp32(task):
+    """Every matrix product of an env's reset and step branches runs
+    without TF32 whatever the caller set, through every pool function, and
+    the caller's setting comes back after each."""
+    matmul = torch.backends.cuda.matmul
+    pool = envpool_tpu_torch.make(task, env_type="gymnasium", num_envs=2, device="cpu",
+                                  numpy_output=False)
+    eng = pool.engine
+    act = eng.zero_action()
+    before = matmul.fp32_precision
+    matmul.fp32_precision = "tf32"
+    try:
+        with _MatmulSettings() as mode:
+            ps, _ = eng.reset(pool.pool_state, torch.ones(2, dtype=torch.bool))
+            assert matmul.fp32_precision == "tf32"
+            ps, _ = eng.step(ps, act)
+            ps, _ = eng.reset_partial(ps, torch.tensor([1]))
+            ps, _ = eng.step_partial(ps, {k: v[:1] for k, v in act.items()}, torch.tensor([0]))
+            assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.fp32_precision = before
+    assert mode.seen and set(mode.seen) == {"ieee"}, task

@@ -356,11 +356,11 @@ def test_ported_ids():
     assert set(PORTED) <= set(envpool_tpu_torch.list_all_envs())
 
 
-# Every dmc id is ported: the ids of the next physics family (robotics),
-# of metaworld, of box2d and of jumanji are not.
+# Every dmc id is ported: the ids of the next physics family (playground),
+# of myosuite, of box2d and of jumanji are not.
 @pytest.mark.parametrize(
-    "task", ["FetchReach-v4", "MetaWorld/Reach-v3", "LunarLander-v3", "Snake-v1",
-             "FetchPush-v4"])
+    "task", ["BarkourJoystick-v1", "myoFingerPoseFixed-v0", "LunarLander-v3", "Snake-v1",
+             "ApolloJoystickFlatTerrain-v1"])
 def test_unported_id_raises(task):
     assert task in jax_registry.specs
     with pytest.raises(ValueError, match="is not supported"):

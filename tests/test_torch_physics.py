@@ -31,6 +31,7 @@ Tolerances:
 
 import dataclasses
 import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -110,10 +111,21 @@ def states(models, jax_steps):
 def test_model_data_matches_from_mjcf(xml, reference):
     """Each committed model equals what ``from_mjcf`` extracts from
     gymnasium's XML, or ``from_mj_model`` from dm_control's model (as the
-    JAX package's dm_control envs load it), field by field and exactly
-    (the port's extractors are in ``tools/export_models.py``)."""
+    JAX package's dm_control envs load it), or from gymnasium_robotics'
+    hand XML with ``apirate`` stripped (as the JAX package's
+    ``_load_hand_model`` loads it), field by field and exactly (the
+    port's extractors are in ``tools/export_models.py``)."""
     pytest.importorskip("mujoco")
-    if xml.startswith("dmc:"):
+    if xml.startswith("hand/"):
+        pytest.importorskip("gymnasium_robotics")
+        if reference == "port":
+            with tempfile.TemporaryDirectory() as work:
+                want = export_models.from_mjcf(export_models.robotics_xml(xml, work))
+        else:
+            from envpool_tpu.envs.robotics.hand import _load_hand_model
+
+            want = _load_hand_model(xml)
+    elif xml.startswith("dmc:"):
         pytest.importorskip("dm_control")
         m = export_models.dmc_mj_model(xml)
         want = (export_models if reference == "port" else jmodel).from_mj_model(m)
